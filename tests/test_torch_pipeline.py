@@ -1,0 +1,155 @@
+"""PyTorch port, the slice as a whole: `explain(decoder="unet")` against the
+JAX pipeline's `jit_explain` on the CPU at tiny geometry, the port's
+independence from JAX, its device rule and the configuration it refuses."""
+
+import inspect
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xai_audio_deepfakes_tpu import config as jc
+from xai_audio_deepfakes_tpu.models.logreg import LogReg
+from xai_audio_deepfakes_tpu.pipeline.core import ADDvisorPipeline as JPipeline
+from tests.test_torch_models import random_params
+from xai_audio_deepfakes_tpu_torch import config as tc
+from xai_audio_deepfakes_tpu_torch.convert import load_jax_params
+from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "xai_audio_deepfakes_tpu_torch"
+
+
+def _tiny(mod):
+    """The tiny PipelineConfig of tests/test_pipeline.py (its explain path),
+    built from either package's config module."""
+    return mod.PipelineConfig(
+        audio=mod.AudioConfig(clip_seconds=0.5),  # 8000 samples -> 25 STFT frames
+        embedder=mod.EmbedderConfig.tiny(),
+        unet=mod.UNetConfig(freq_bins=64, frames=24, base_channels=4),
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """Random numpy weights in the JAX pipeline's tree for the tiny explain
+    path (the feature decoder, which explain(decoder="unet") never reads, is
+    left out)."""
+    cfg = _tiny(jc)
+    jpipe = JPipeline(cfg)
+    wav = jnp.zeros((1, cfg.audio.num_samples), jnp.float32)
+    mag = jnp.zeros((1, cfg.unet.freq_bins, cfg.unet.frames), jnp.float32)
+    return {
+        "encoder": random_params(jpipe.encoder.init, jax.random.PRNGKey(0), wav, seed=1),
+        "unet": random_params(jpipe.unet.init, jax.random.PRNGKey(0), mag, seed=2),
+        "logreg": jax.tree.map(np.asarray, LogReg.init(cfg.embedder.hidden_size)),
+    }
+
+
+@pytest.mark.parametrize("masking", ["log1p", "linear"])
+def test_explain_matches_jax_jit_explain(jax_params, masking):
+    """Same weights (through the bridge), same clips: mask atol 1e-5,
+    waveforms 2e-4, the three probabilities 1e-4."""
+    params = jax_params
+    jpipe = JPipeline(_tiny(jc))
+    wav = np.random.default_rng(1).standard_normal((2, 8000)).astype(np.float32) * 0.1
+    ref = jpipe.jit_explain(masking=jc.MaskingConvention(masking))(params, jnp.asarray(wav))
+    pipe = ADDvisorPipeline(_tiny(tc), device="cpu", seed=9)
+    load_jax_params(pipe, params)
+    out = pipe.explain(wav, masking=tc.MaskingConvention(masking))
+    for name, atol in (("mask", 1e-5), ("magnitude", 1e-4), ("relevant_wav", 2e-4),
+                       ("irrelevant_wav", 2e-4), ("probs_clean", 1e-4),
+                       ("probs_relevant", 1e-4), ("probs_irrelevant", 1e-4)):
+        np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(ref, name)),
+                                   atol=atol, err_msg=name)
+
+
+def test_port_runs_without_jax():
+    """Import the port and run the tiny explain on the CPU in a process where
+    `import jax` and `import xai_audio_deepfakes_tpu` fail."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['xai_audio_deepfakes_tpu'] = None\n"
+        "import numpy as np\n"
+        "from xai_audio_deepfakes_tpu_torch import ADDvisorPipeline, PipelineConfig\n"
+        "from xai_audio_deepfakes_tpu_torch.config import AudioConfig, EmbedderConfig, UNetConfig\n"
+        "cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5), embedder=EmbedderConfig.tiny(),\n"
+        "                     unet=UNetConfig(freq_bins=64, frames=24, base_channels=4))\n"
+        "out = ADDvisorPipeline(cfg, device='cpu').explain(np.zeros((1, 8000), np.float32) + 0.01)\n"
+        "assert out.relevant_wav.shape == (1, 8000)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|xai_audio_deepfakes_tpu)(\.|\s|$)", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_explain.py"]
+    assert len(files) > 10
+    for path in files:
+        hits = pattern.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_default_device_is_cuda():
+    """Entry points default to CUDA; without CUDA and without device='cpu'
+    they raise instead of falling back."""
+    assert inspect.signature(ADDvisorPipeline).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert ADDvisorPipeline(_tiny(tc)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ADDvisorPipeline(_tiny(tc))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("quant", "int8"), ("quant_conv", "int8"), ("fused_conv", True),
+    ("scan_layers", True), ("remat", True), ("fused_attention", False),
+])
+def test_unported_embedder_options_raise(field, value):
+    cfg = _tiny(tc)
+    cfg = cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, **{field: value}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ADDvisorPipeline(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("fused_ln_gelu,precision,raises", [
+    (False, "high", True),  # bf16 GELU in the compute dtype: not the kernel's
+    (True, "default", True),  # one-pass bf16 DFT
+    (True, "highest", False),
+])
+def test_formulation_switches(fused_ln_gelu, precision, raises):
+    """A bf16 config is accepted only where its switches name the one
+    formulation the port runs (kernel D's cast points, an f32 DFT)."""
+    cfg = _tiny(tc)
+    cfg = cfg.replace(
+        stft=tc.dataclasses.replace(cfg.stft, precision=precision),
+        embedder=tc.dataclasses.replace(cfg.embedder, dtype="bfloat16",
+                                        fused_ln_gelu=fused_ln_gelu))
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ADDvisorPipeline(cfg, device="cpu")
+    else:
+        ADDvisorPipeline(cfg, device="cpu")
+
+
+def test_unported_entry_points_raise():
+    pipe = ADDvisorPipeline(_tiny(tc), device="cpu")
+    wav = np.zeros((1, 8000), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pipe.explain(wav, decoder="features")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pipe.vocode(wav)

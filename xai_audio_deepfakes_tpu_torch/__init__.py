@@ -1,0 +1,42 @@
+"""xai_audio_deepfakes_tpu_torch: the PyTorch/CUDA port of
+`xai_audio_deepfakes_tpu`, for an NVIDIA H100.
+
+The JAX package beside it is the reference; this package imports nothing of
+it, and nothing of JAX. Its layout mirrors the JAX package's:
+
+config    the configuration dataclasses (own copies)
+ops       DSP, masking and the kernel wrappers (attention, STFT/iSTFT,
+          LayerNorm+GELU), each with its plain PyTorch version
+csrc      the hand-written CUDA kernels, built with nvcc at first use
+models    UNet mask decoder, wav2vec2 XLS-R embedder, LogReg head
+pipeline  `ADDvisorPipeline.explain(decoder="unet")`, end to end
+convert   the weight bridge from the JAX package's parameter tree
+
+Entry points run on CUDA unless the caller passes device="cpu".
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "ADDvisorPipeline": ("xai_audio_deepfakes_tpu_torch.pipeline.core", "ADDvisorPipeline"),
+    "ExplainOutput": ("xai_audio_deepfakes_tpu_torch.pipeline.core", "ExplainOutput"),
+    "PipelineConfig": ("xai_audio_deepfakes_tpu_torch.config", "PipelineConfig"),
+    "EmbedderConfig": ("xai_audio_deepfakes_tpu_torch.config", "EmbedderConfig"),
+    "UNetConfig": ("xai_audio_deepfakes_tpu_torch.config", "UNetConfig"),
+    "MaskingConvention": ("xai_audio_deepfakes_tpu_torch.config", "MaskingConvention"),
+    "LabelPolarity": ("xai_audio_deepfakes_tpu_torch.config", "LabelPolarity"),
+    "load_jax_params": ("xai_audio_deepfakes_tpu_torch.convert", "load_jax_params"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

@@ -1,0 +1,26 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU with
+`device="cpu"`. Without CUDA and without that request they raise: nothing
+falls back to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]

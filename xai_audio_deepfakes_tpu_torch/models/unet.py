@@ -1,0 +1,103 @@
+"""Spectrogram-magnitude -> sigmoid-mask UNet decoder (port of
+`models/unet.py::UNetMaskDecoder`), NCHW.
+
+Submodules carry the names of the reference's state dict (`e1.block.0/1/3/4`,
+`bottleneck.0/1/3/4`, `up1..4`, `mask_head.0`), so a reference `.pth` loads
+with `load_state_dict` once a DDP `module.` prefix is stripped
+(`load_reference_state_dict`). Encoder channels 1 -> c -> 2c -> 4c -> 8c,
+a dilated 16c bottleneck (d=2, then d=4), transposed-conv decoder with skip
+concats, 1x1 conv and a sigmoid. BatchNorm uses eps 1e-5 and, for training,
+momentum 0.01 (flax's 0.99 in torch's convention).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from xai_audio_deepfakes_tpu_torch.config import UNetConfig
+
+_BN = dict(eps=1e-5, momentum=0.01)
+
+
+class ConvBlock(nn.Module):
+    """conv(k, s, p) -> BN -> LeakyReLU -> conv(3, 1, 1) -> BN -> LeakyReLU."""
+
+    def __init__(self, cin, cout, kernel=(3, 3), stride=(1, 1), padding=(1, 1), slope=0.2):
+        super().__init__()
+        self.block = nn.Sequential(
+            nn.Conv2d(cin, cout, kernel, stride, padding),
+            nn.BatchNorm2d(cout, **_BN),
+            nn.LeakyReLU(slope),
+            nn.Conv2d(cout, cout, 3, 1, 1),
+            nn.BatchNorm2d(cout, **_BN),
+            nn.LeakyReLU(slope),
+        )
+
+    def forward(self, x):
+        return self.block(x)
+
+
+class UNetMaskDecoder(nn.Module):
+    """magnitude [B, F, T] (cropped, (512, 248) by default) -> mask [B, F, T]
+    in (0, 1), computed in f32."""
+
+    def __init__(self, cfg: UNetConfig = UNetConfig()):
+        super().__init__()
+        self.cfg = cfg
+        c, s = cfg.base_channels, cfg.leaky_slope
+        self.e1 = ConvBlock(1, c, (5, 3), (2, 1), (2, 1), s)
+        self.e2 = ConvBlock(c, 2 * c, (5, 3), (2, 1), (2, 1), s)
+        self.e3 = ConvBlock(2 * c, 4 * c, (3, 3), (2, 2), (1, 1), s)
+        self.e4 = ConvBlock(4 * c, 8 * c, (3, 3), (2, 2), (1, 1), s)
+        self.bottleneck = nn.Sequential(
+            nn.Conv2d(8 * c, 16 * c, 3, padding=2, dilation=2),
+            nn.BatchNorm2d(16 * c, **_BN),
+            nn.LeakyReLU(s),
+            nn.Conv2d(16 * c, 16 * c, 3, padding=4, dilation=4),
+            nn.BatchNorm2d(16 * c, **_BN),
+            nn.LeakyReLU(s),
+        )
+        self.up4 = nn.ConvTranspose2d(16 * c, 8 * c, 2, stride=2)
+        self.d4 = ConvBlock(8 * c + 4 * c, 8 * c, slope=s)
+        self.up3 = nn.ConvTranspose2d(8 * c, 4 * c, 2, stride=2)
+        self.d3 = ConvBlock(4 * c + 2 * c, 4 * c, slope=s)
+        self.up2 = nn.ConvTranspose2d(4 * c, 2 * c, (2, 1), stride=(2, 1))
+        self.d2 = ConvBlock(2 * c + c, 2 * c, slope=s)
+        self.up1 = nn.ConvTranspose2d(2 * c, c, (2, 1), stride=(2, 1))
+        self.d1 = ConvBlock(c + 1, c, slope=s)
+        self.mask_head = nn.Sequential(nn.Conv2d(c, 1, 1))
+
+    def forward(self, mag: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if tuple(mag.shape[-2:]) != (cfg.freq_bins, cfg.frames):
+            raise ValueError(f"UNet takes [B, {cfg.freq_bins}, {cfg.frames}], got {tuple(mag.shape)}")
+        x = mag[:, None].float()
+        x1 = self.e1(x)
+        x2 = self.e2(x1)
+        x3 = self.e3(x2)
+        x4 = self.e4(x3)
+        y = self.bottleneck(x4)
+        y = self.d4(torch.cat([self.up4(y), x3], dim=1))
+        y = self.d3(torch.cat([self.up3(y), x2], dim=1))
+        y = self.d2(torch.cat([self.up2(y), x1], dim=1))
+        y = self.d1(torch.cat([self.up1(y), x], dim=1))
+        return torch.sigmoid(self.mask_head(y).float())[:, 0]
+
+
+def init_unet_(model: UNetMaskDecoder, generator: torch.Generator) -> UNetMaskDecoder:
+    """Random weights from `generator`: conv weights ~ N(0, 1/fan_in), zero
+    biases; BatchNorm stays at identity (scale 1, shift 0, stats 0 and 1)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                fan_in = m.in_channels * m.weight[0, 0].numel()
+                m.weight.normal_(0.0, fan_in**-0.5, generator=generator)
+                m.bias.zero_()
+    return model
+
+
+def load_reference_state_dict(model: UNetMaskDecoder, sd: dict) -> None:
+    """Load a reference UNet state dict, with or without the DDP `module.`
+    prefix."""
+    model.load_state_dict({k.removeprefix("module."): v for k, v in sd.items()})

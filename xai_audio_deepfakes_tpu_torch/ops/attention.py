@@ -1,0 +1,63 @@
+"""Fused multi-head attention for the embedder: kernel A's wrapper, its plain
+version, and the port of `ops/attention.py::attention_reference`.
+
+Activations arrive head-padded, [B, T, NH * HDP] with HDP = 128 and exact
+zero pad lanes (the port's `HeadDense` pads the projection weights), and q is
+pre-scaled by hd^-0.5. The kernel is `csrc/attention.cu`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+
+def head_pad_dim(hd: int) -> int:
+    """Head dim the fused path pads to (a multiple of 128)."""
+    return ((hd + 127) // 128) * 128
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q, k, v [B, T, NH, HD] (q pre-scaled) -> ctx [B, T, NH, HD]: f32
+    softmax, probabilities cast back to the compute dtype before p . v."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
+    """Plain version of kernel A, in the kernel's order of operations:
+    f32 scores, p = exp(s - rowmax), (p in the compute dtype) . v with f32
+    accumulation, then division by the f32 row sum of p."""
+    b, t, f = q.shape
+    heads = lambda x: x.reshape(b, t, nh, f // nh).transpose(1, 2).float()  # noqa: E731
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    s = torch.matmul(qh, kh.transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    ctx = torch.matmul(p.to(q.dtype).float(), vh) / p.sum(dim=-1, keepdim=True)
+    return ctx.to(q.dtype).transpose(1, 2).reshape(b, t, f)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
+    """[B, T, NH * 128] q, k, v -> ctx of the same shape and dtype. CPU
+    tensors take the plain version; CUDA tensors launch kernel A."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, nh)
+    _cuda.require_cuda("attention", q, k, v, dtypes=tuple(_cuda.DTYPE_CODES))
+    if not (q.shape == k.shape == v.shape and q.dtype == k.dtype == v.dtype and q.ndim == 3):
+        raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, t, f = q.shape
+    if f % nh or f // nh != 128:
+        raise ValueError(f"attention: the kernel takes head dim 128, got {f} / {nh}")
+    lib = _cuda.library()
+    if t > lib.addv_attention_max_t():
+        raise ValueError(f"attention: T={t} exceeds the kernel's score tile")
+    out = torch.empty_like(q)
+    err = lib.addv_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, nh, f // nh,
+        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q),
+    )
+    _cuda.check(err, "attention")
+    _cuda.LAUNCHES["attention"] += 1
+    return out

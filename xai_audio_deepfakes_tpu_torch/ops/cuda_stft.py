@@ -1,0 +1,78 @@
+"""STFT and iSTFT kernel wrappers (kernels B and C; the port's counterpart
+of `ops/pallas_stft.py`).
+
+CPU tensors take the plain versions in `ops/stft.py`; CUDA tensors launch
+`csrc/stft.cu` and `csrc/istft.cu`. Both kernels work in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from xai_audio_deepfakes_tpu_torch.config import STFTConfig
+from xai_audio_deepfakes_tpu_torch.ops import _cuda
+from xai_audio_deepfakes_tpu_torch.ops.stft import (
+    device_constant,
+    istft_plain,
+    pad_signal,
+    stft_plain,
+)
+
+
+def stft(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, L] (or [L]) f32 -> (re, im), each [B, n_fft//2+1, T]."""
+    if x.ndim == 1:
+        x = x[None]
+    if x.device.type == "cpu":
+        return stft_plain(x, cfg)
+    _cuda.require_cuda("stft", x)
+    xp = pad_signal(x, cfg).contiguous()
+    b, padded_len = xp.shape
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    if padded_len < n_fft:
+        raise ValueError(f"stft: signal of {x.shape[-1]} samples is shorter than a frame")
+    t = 1 + (padded_len - n_fft) // hop
+    win = device_constant("window", x.device, cfg.window, cfg.win_length, n_fft)
+    bases = device_constant("dft", x.device, n_fft)
+    re = torch.empty((b, cfg.num_bins, t), dtype=torch.float32, device=x.device)
+    im = torch.empty_like(re)
+    err = _cuda.library().addv_stft(
+        xp.data_ptr(), win.data_ptr(), bases[0].data_ptr(), bases[1].data_ptr(),
+        re.data_ptr(), im.data_ptr(), b, padded_len, t, n_fft, hop, _cuda.stream_handle(x),
+    )
+    _cuda.check(err, "stft")
+    _cuda.LAUNCHES["stft"] += 1
+    return re, im
+
+
+def stft_magnitude_phase(x: torch.Tensor, cfg: STFTConfig):
+    """(re, im, magnitude, phase), magnitude and phase as torch .abs() and
+    .angle() of the complex STFT."""
+    re, im = stft(x, cfg)
+    return re, im, torch.sqrt(re * re + im * im), torch.atan2(im, re)
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, cfg: STFTConfig, length: int) -> torch.Tensor:
+    """(re, im) [B, n_fft//2+1, T] f32 -> waveform [B, length]."""
+    if real.ndim == 2:
+        real, imag = real[None], imag[None]
+    if real.device.type == "cpu":
+        return istft_plain(real, imag, cfg, length)
+    real, imag = real.contiguous(), imag.contiguous()
+    _cuda.require_cuda("istft", real, imag)
+    b, f, t = real.shape
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    if imag.shape != real.shape or f != cfg.num_bins:
+        raise ValueError(f"istft: re {tuple(real.shape)}, im {tuple(imag.shape)}")
+    bases = device_constant("idft", real.device, n_fft)
+    win = device_constant("window", real.device, cfg.window, cfg.win_length, n_fft)
+    env = device_constant("envelope", real.device, t, n_fft, hop, cfg.window, cfg.win_length)
+    y = torch.empty((b, length), dtype=torch.float32, device=real.device)
+    err = _cuda.library().addv_istft(
+        real.data_ptr(), imag.data_ptr(), bases[0].data_ptr(), bases[1].data_ptr(),
+        win.data_ptr(), env.data_ptr(), y.data_ptr(), b, t, n_fft, hop, int(cfg.center),
+        length, _cuda.stream_handle(real),
+    )
+    _cuda.check(err, "istft")
+    _cuda.LAUNCHES["istft"] += 1
+    return y

@@ -1,0 +1,133 @@
+"""End-to-end explanation pipeline (port of `pipeline/core.py`):
+wav -> STFT -> UNet mask -> masked iSTFTs -> one 3B-batch embedder pass ->
+LogReg -> three probabilities.
+
+The JAX pipeline is a frozen bundle of module definitions whose stages are
+pure functions of (params, arrays). Here the pipeline owns its modules and
+their weights; `convert.load_jax_params` sets them from a JAX parameter tree,
+and a fresh pipeline has random weights drawn from a seeded torch.Generator.
+Every entry point runs under `torch.inference_mode()`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from xai_audio_deepfakes_tpu_torch.config import (
+    MaskingConvention,
+    PipelineConfig,
+    check_supported,
+)
+from xai_audio_deepfakes_tpu_torch.device import resolve_device
+from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply, logreg_init
+from xai_audio_deepfakes_tpu_torch.models.unet import UNetMaskDecoder, init_unet_
+from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
+from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft, stft_magnitude_phase
+from xai_audio_deepfakes_tpu_torch.ops.masking import (
+    apply_mask,
+    crop_spec,
+    pad_mask_to_spec,
+    remask_complex,
+)
+from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
+
+
+class ExplainOutput(NamedTuple):
+    mask: torch.Tensor              # [B, F, T] full-spec mask (zero-padded)
+    magnitude: torch.Tensor         # [B, 513, 249] |STFT|
+    phase: torch.Tensor             # [B, 513, 249]
+    relevant_wav: torch.Tensor      # [B, 80000] listenable explanation
+    irrelevant_wav: torch.Tensor    # [B, 80000] complement
+    probs_clean: torch.Tensor       # [B, 1]
+    probs_relevant: torch.Tensor    # [B, 1]
+    probs_irrelevant: torch.Tensor  # [B, 1]
+
+
+class ADDvisorPipeline:
+    """Owns the embedder, the UNet and the LogReg head on one device.
+
+    `device` defaults to "cuda" and raises when CUDA is missing; pass
+    device="cpu" to run the kernels' plain versions on the CPU.
+
+    Float32 products and convolutions run in full f32: TF32 is switched off
+    for both cuBLAS and cuDNN (process-wide torch settings), because the UNet
+    mask is what users hear and TF32 keeps about three decimal digits. The
+    embedder's bf16 compute dtype is unaffected.
+    """
+
+    def __init__(self, cfg: PipelineConfig = PipelineConfig(), device="cuda", seed: int = 0):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.encoder = Wav2Vec2Encoder(cfg.embedder, gen, self.device).eval()
+        self.unet = init_unet_(UNetMaskDecoder(cfg.unet).to(self.device), gen).eval()
+        self.logreg = logreg_init(cfg.embedder.hidden_size, gen, self.device)
+
+    def _as_input(self, wav) -> torch.Tensor:
+        return torch.as_tensor(wav, dtype=torch.float32, device=self.device).contiguous()
+
+    @torch.inference_mode()
+    def features(self, wav) -> torch.Tensor:
+        """wav [B, L] -> features [B, T, H] f32 (normalise, then embed)."""
+        return self.encoder(zero_mean_unit_var_norm(self._as_input(wav)))
+
+    @torch.inference_mode()
+    def classify_features(self, feats: torch.Tensor):
+        """feats [B, T, H] -> (logits, probs) [B, 1] via the time mean-pool."""
+        return logreg_apply(self.logreg, feats.mean(dim=1))
+
+    def classify(self, wav):
+        return self.classify_features(self.features(wav))
+
+    @torch.inference_mode()
+    def spectrogram(self, wav):
+        """wav [B, L] -> (real, imag, magnitude, phase), each [B, 513, 249]."""
+        return stft_magnitude_phase(self._as_input(wav), self.cfg.stft)
+
+    @torch.inference_mode()
+    def istft(self, real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
+        return istft(real, imag, self.cfg.stft, length=self.cfg.audio.num_samples)
+
+    @torch.inference_mode()
+    def predict_mask(self, magnitude: torch.Tensor) -> torch.Tensor:
+        """Cropped magnitude -> UNet -> full-spec mask, zero on the cropped
+        top bin and last frame."""
+        uc = self.cfg.unet
+        mask = self.unet(crop_spec(magnitude, uc.freq_bins, uc.frames))
+        return pad_mask_to_spec(mask, magnitude.shape[-2], magnitude.shape[-1])
+
+    @torch.inference_mode()
+    def explain(self, wav, decoder: str = "unet",
+                masking: MaskingConvention | None = None) -> ExplainOutput:
+        """The explanation path: the mask depends only on the magnitude, so
+        the clean clip and both masked re-syntheses share one 3B-batch
+        embedder pass."""
+        if decoder == "features":
+            raise NotImplementedError(
+                'explain(decoder="features") is not ported yet (ROADMAP.md Queue 1 item 8)'
+            )
+        if decoder != "unet":
+            raise ValueError(f"unknown decoder {decoder!r}")
+        masking = self.cfg.masking if masking is None else masking
+        wav = self._as_input(wav)
+        _, _, mag, phase = self.spectrogram(wav)
+        mask = self.predict_mask(mag)
+        rel_mag, irr_mag = apply_mask(mask, mag, masking)
+        rel_wav = self.istft(*remask_complex(rel_mag, phase))
+        irr_wav = self.istft(*remask_complex(irr_mag, phase))
+        b = wav.shape[0]
+        _, probs = self.classify(torch.cat([wav, rel_wav, irr_wav], dim=0))
+        return ExplainOutput(
+            mask=mask, magnitude=mag, phase=phase,
+            relevant_wav=rel_wav, irrelevant_wav=irr_wav,
+            probs_clean=probs[:b], probs_relevant=probs[b : 2 * b],
+            probs_irrelevant=probs[2 * b :],
+        )
+
+    def vocode(self, wav):
+        raise NotImplementedError("vocoding is not ported yet (ROADMAP.md Queue 1 item 10)")
