@@ -9,19 +9,34 @@ PyTorch built for CUDA. It
  1. prints the card's name and power limit (nvidia-smi);
  2. builds the hand-written kernels from `xai_audio_deepfakes_tpu_torch/csrc`
     and prints the build seconds and ptxas' register / shared-memory report;
- 3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU) against
-    its plain PyTorch version at the main path's shapes (8 clips, embedder
-    batch 24), in f32 and in the working dtype, each beside its tolerance,
-    and times the kernel, the plain version and one PyTorch library call
-    that computes the same function (timed only; the port never calls it);
- 4. runs `ADDvisorPipeline.explain(decoder="unet")` at the full width of the
+ 3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
+    E conv+LayerNorm+GELU) against its plain PyTorch version at the main
+    path's shapes (8 clips, embedder batch 24), in f32 and in the working
+    dtype, each beside its tolerance, and times the kernel, the plain version
+    and one PyTorch library call that computes the same function (timed
+    only; the port never calls it);
+ 4. holds the backward of A, C, D and E (forward through the kernel, backward
+    by recomputation) against autograd through the plain version, at the
+    training step's shapes (2 clips);
+ 5. runs `ADDvisorPipeline.explain(decoder="unet")` at the full width of the
     XLS-R-2B truncation (bf16 embedder, default UNet) on 8 seeded clips with
     random weights from a seeded torch.Generator, checks shapes, finiteness
     and probabilities in (0, 1), counts the kernel launches of one explain
-    (A 9, B 1, C 2, D 7) and prints clips/s;
- 5. runs a tiny f32 explain on the card and on the CPU with the same weights
-    and compares them (mask 1e-5, waveforms 2e-4, probabilities 1e-4);
- 6. prints the `kernels` JSON line and, last, the device line.
+    (A 9, B 1, C 2, D 7) and prints clips/s; then the same with
+    `fused_conv=True` (A 9, B 1, C 2, D 1, E 6), whose probabilities must
+    agree with the first run's within 0.05;
+ 6. takes LMAC training steps of the UNet decoder at full width and depth
+    (bf16 embedder with both fused frontend kernels, f32 UNet, 2 clips):
+    launches per step A 27, B 1, C 2, D 3, E 18, finite losses, loss weights
+    renormalised to sum 3, decoder changed, embedder bit-identical; prints
+    step ms, its forward / backward / optimiser split and peak memory;
+ 7. runs a tiny f32 explain and a tiny f32 training step on the card and on
+    the CPU with the same weights and compares them (mask 1e-5, waveforms
+    2e-4, probabilities 1e-4; losses 1e-4, decoder gradients 1e-3 of their
+    scale, loss weights 1e-5);
+ 8. prints the `kernels` JSON line and, last, the device line. A kernel's
+    `launches` are those of every driven path together (two explains and
+    the counted training steps), each path counted from zero.
 
 Any failed phase exits non-zero without the last line. Without CUDA it exits
 1 before printing anything.
@@ -29,6 +44,7 @@ Any failed phase exits non-zero without the last line. Without CUDA it exits
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -232,7 +248,127 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
                      note="ms, plain_ms, library_ms and bound_ms summed over the 7 frontend shapes"))
 
 
-def run_explain(torch, cfg, rows: list) -> None:
+def conv_inputs(torch, g, dtype, k: int, length: int, batch: int, c: int):
+    """Activations ~ N(0, 1), weights ~ N(0, 1 / fan_in), as the frontend's."""
+    x = torch.randn(batch, c, length, device="cuda", generator=g)
+    w = torch.randn(c, c, k, device="cuda", generator=g) * (c * k) ** -0.5
+    cb = 0.1 * torch.randn(c, device="cuda", generator=g)
+    scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    return x.to(dtype), w.to(dtype), cb.to(dtype), scale, bias
+
+
+def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
+    import torch.nn.functional as F
+
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
+
+    e = cfg.embedder
+    b, c, eps = 3 * BATCH, e.conv_dim[0], e.layer_norm_eps
+    g = torch.Generator(device="cuda").manual_seed(4)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    ms = plain = lib = ops = nbytes = 0.0
+    by_layer = []
+    worst_share = 0.0
+    lengths = frontend_lengths(cfg)
+    # f32: sums of k * 512 products in another order than cuDNN's, on values
+    # of order 1 after the LayerNorm. bf16: the tensor cores' f32 sums differ
+    # from cuDNN's in the last bits, so a conv sum now and then rounds to the
+    # neighbouring bf16 value; that step (up to 2^-7 of the value) passes
+    # through the normalisation's and the GELU's own roundings, up to four
+    # bf16 steps in all (4 * 2^-7 = 3.2e-2 of |y|). Such elements are rare:
+    # at most 0.1% may differ by more than one step (1e-2 + 1e-2 |y|).
+    tolerances = ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 3.2e-2))
+    for layer in range(1, len(lengths)):
+        k, l_in, l_out = e.conv_kernel[layer], lengths[layer - 1], lengths[layer]
+        for dt, atol, rtol in tolerances:
+            x, w, cb, scale, bias = conv_inputs(torch, g, dt, k, l_in, b, c)
+            out = conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu)
+            torch.cuda.synchronize()
+            if tuple(out.shape) != (b, c, l_out):
+                fail(f"E conv_ln_gelu: output {tuple(out.shape)}, want {(b, c, l_out)}")
+            want = conv_ln_gelu_plain(x, w, cb, scale, bias, eps, e.gelu)
+            errs[dt] = max(errs[dt], check_close(
+                f"E conv_ln_gelu {dt} k={k} L={l_in}", out, want, atol, rtol))
+            if dt == torch.bfloat16:
+                off = (out.float() - want.float()).abs() > 1e-2 + 1e-2 * want.float().abs()
+                share = float(off.float().mean())
+                worst_share = max(worst_share, share)
+                print(f"    more than one bf16 step off: {share:.2e} of the elements (at most 1e-3)")
+                if share > 1e-3:
+                    fail("E conv_ln_gelu: too many elements are more than one bf16 step off")
+            del out, want
+        # x, w, ... are now the bf16 inputs of this layer
+        by_layer.append(time_ms(lambda: conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu),
+                                iters=5, warmup=1))
+        ms += by_layer[-1]
+        plain += time_ms(lambda: conv_ln_gelu_plain(x, w, cb, scale, bias, eps, e.gelu),
+                         iters=5, warmup=1)
+        sc, bi = scale.to(x.dtype), bias.to(x.dtype)
+        lib += time_ms(lambda: F.gelu(F.layer_norm(
+            F.conv1d(x, w, cb, stride=2).transpose(1, 2), (c,), sc, bi, eps)), iters=5, warmup=1)
+        ops += 2.0 * b * l_out * c * c * k
+        nbytes += 2.0 * (b * c * (l_in + l_out) + c * c * k) + 4.0 * 3 * c
+        del x, w
+    bnd, by = bound_ms(nbytes, ops, "bfloat16")
+    rows.append(dict(name="conv_ln_gelu", route="cuda",
+                     source="xai_audio_deepfakes_tpu_torch/csrc/conv_ln_gelu.cu",
+                     replaces="xai_audio_deepfakes_tpu/ops/pallas_conv.py:213",
+                     max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
+                     bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
+                     shape=[b, c, lengths[:-1]], dtype="bfloat16", gflop=ops / 1e9, ms_by_layer=by_layer,
+                     share_over_one_bf16_step=worst_share,
+                     note="ms, plain_ms, library_ms and bound_ms summed over frontend layers 1-6"))
+
+
+def check_backwards(torch, cfg) -> None:
+    """Backward of each differentiated kernel wrapper (forward through the
+    kernel, backward by recomputation) against autograd through the plain
+    version, in f32 at the training step's shapes (2 clips). Tolerance: 1e-4
+    of the gradient's largest magnitude (f32 sums in another order)."""
+    from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu, ln_gelu_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft
+    from xai_audio_deepfakes_tpu_torch.ops.stft import istft_plain
+
+    e, sc, n = cfg.embedder, cfg.stft, cfg.audio.num_samples
+    b, t, nh, c, eps = cfg.train.batch_size, cfg.audio.num_frames(cfg.stft), e.num_heads, 512, 1e-5
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = []
+    for _ in range(3):
+        x = torch.zeros(b, t, nh, 128, device="cuda")
+        x[..., :120] = torch.randn(b, t, nh, 120, device="cuda", generator=g) * 0.3
+        qkv.append(x.reshape(b, t, nh * 128))
+    spec = [torch.randn(b, sc.num_bins, t, device="cuda", generator=g) for _ in range(2)]
+    length = frontend_lengths(cfg)[0]
+    conv = conv_inputs(torch, g, torch.float32, 3, length, b, c)
+    cases = (
+        ("A attention", qkv, lambda q, k, v: attention(q, k, v, nh),
+         lambda q, k, v: attention_plain(q, k, v, nh)),
+        ("C istft", spec, lambda re, im: istft(re, im, sc, n),
+         lambda re, im: istft_plain(re, im, sc, n)),
+        ("D ln_gelu", [conv[0], conv[3], conv[4]],
+         lambda x, s, bi: ln_gelu(x * 1.0, s, bi, eps, e.gelu),
+         lambda x, s, bi: ln_gelu_plain(x, s, bi, eps, e.gelu)),
+        ("E conv_ln_gelu", list(conv), lambda *a: conv_ln_gelu(*a, eps, e.gelu),
+         lambda *a: conv_ln_gelu_plain(*a, eps, e.gelu)),
+    )
+
+    def grads(fn, tensors):
+        leaves = [x.detach().clone().requires_grad_() for x in tensors]
+        (fn(*leaves) ** 2).sum().backward()
+        return [x.grad for x in leaves]
+
+    for name, tensors, fn, plain in cases:
+        for i, (got, want) in enumerate(zip(grads(fn, tensors), grads(plain, tensors))):
+            check_close(f"{name} backward, input {i}", got, want,
+                        1e-4 * float(want.abs().max()))
+
+
+def run_explain(torch, cfg, want: dict, reps: int):
+    """One counted explain at full width and `reps` timed ones; returns the
+    launch counts and the three probabilities of every clip."""
     import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.ops import _cuda
@@ -255,8 +391,6 @@ def run_explain(torch, cfg, rows: list) -> None:
     first = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     print(f"explain launches: {launches}")
-    want = {"attention": cfg.embedder.num_layers, "stft": 1, "istft": 2,
-            "ln_gelu": len(cfg.embedder.conv_dim)}
     if launches != want:
         fail(f"launch counts {launches} != {want}")
 
@@ -274,18 +408,18 @@ def run_explain(torch, cfg, rows: list) -> None:
             fail(f"explain.{name} outside (0, 1): {p.flatten().tolist()}")
     print("probs_clean", [round(v, 4) for v in out.probs_clean.flatten().tolist()])
 
-    reps = 3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         pipe.explain(wav_t)
     torch.cuda.synchronize()
     steady = (time.perf_counter() - t0) / reps
-    print(f"explain B={BATCH}: counted run {first * 1e3:.1f} ms, steady {steady * 1e3:.1f} ms, "
+    print(f"explain B={BATCH} fused_conv={cfg.embedder.fused_conv}: counted run "
+          f"{first * 1e3:.1f} ms, steady {steady * 1e3:.1f} ms, "
           f"{BATCH / steady:.2f} clips/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    probs = torch.cat([out.probs_clean, out.probs_relevant, out.probs_irrelevant])
+    return launches, probs.flatten().cpu()
 
 
 def run_tiny_reference(torch) -> None:
@@ -312,6 +446,120 @@ def run_tiny_reference(torch) -> None:
     for name, atol in (("mask", 1e-5), ("relevant_wav", 2e-4), ("irrelevant_wav", 2e-4),
                        ("probs_clean", 1e-4), ("probs_relevant", 1e-4), ("probs_irrelevant", 1e-4)):
         check_close(f"tiny explain {name}", getattr(out_gpu, name).cpu(), getattr(out_cpu, name), atol)
+
+
+def run_training(torch, cfg) -> dict:
+    """LMAC training steps of the UNet decoder at full width and depth on
+    seeded noise; returns the launches of the counted steps together."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    e, b = cfg.embedder, cfg.train.batch_size
+    pipe = ADDvisorPipeline(cfg, device="cuda", seed=0)
+    state = init_train_state(pipe)
+    events: list = []
+
+    def mark(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    step = make_train_step(pipe, mark=mark)
+    rng = np.random.default_rng(1)
+    enc_before = [p.detach().clone() for p in pipe.encoder.parameters()]
+    dec_before = [p.detach().clone() for p in pipe.unet.parameters()]
+    fusable = sum(blk.fusable for blk in pipe.encoder.feature_encoder.conv_layers)
+    want = {"attention": 3 * e.num_layers, "stft": 1, "istft": 2,
+            "ln_gelu": 3 * (len(e.conv_dim) - fusable), "conv_ln_gelu": 3 * fusable}
+    total = dict.fromkeys(want, 0)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3 + 3):  # three counted and asserted steps, then three timed ones
+        wav = (rng.standard_normal((b, cfg.audio.num_samples)) * 0.1).astype(np.float32)
+        _cuda.reset_launches()
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, aux = step(state, wav)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_cuda.LAUNCHES)
+        if launches != want:
+            fail(f"training step {i}: launch counts {launches} != {want}")
+        vec = aux["loss_vec"].cpu()
+        if not bool(torch.isfinite(vec).all()):
+            fail(f"training step {i}: non-finite losses {vec.tolist()}")
+        w_sum = float(aux["w"].sum())
+        if abs(w_sum - 3.0) > 1e-4:
+            fail(f"training step {i}: softplus(w_raw) sums to {w_sum}, not 3")
+        if i < 3:
+            for name in total:
+                total[name] += launches[name]
+        print(f"  step {i}: loss {vec[0]:.5f} l_in {vec[1]:.5f} l_out {vec[2]:.5f} l1 {vec[3]:.5f} "
+              f"w {[round(v, 5) for v in aux['w'].tolist()]} {times[-1]:.1f} ms")
+    print(f"training launches per step: {want}")
+    if not all(torch.equal(a, p) for a, p in zip(enc_before, pipe.encoder.parameters())):
+        fail("training changed an embedder parameter")
+    if not any(not torch.equal(a, p) for a, p in zip(dec_before, pipe.unet.parameters())):
+        fail("training changed no decoder parameter")
+    split, prev = {}, start
+    for name, ev in events:  # of the last step
+        split[name] = prev.elapsed_time(ev)
+        prev = ev
+    print(f"training step B={b} (bf16 embedder, fused_ln_gelu, fused_conv, f32 UNet): steady "
+          f"{sum(times[3:]) / 3:.1f} ms (first {times[0]:.1f} ms), last step's device split "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+          + f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return total
+
+
+def run_tiny_training(torch) -> None:
+    """One tiny f32 training step on the card against the same step on the
+    CPU: conv widths of 128, so that kernel E runs, and both fused frontend
+    switches on."""
+    import dataclasses
+
+    from xai_audio_deepfakes_tpu_torch.config import (
+        AudioConfig,
+        EmbedderConfig,
+        PipelineConfig,
+        UNetConfig,
+    )
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    emb = dataclasses.replace(EmbedderConfig.tiny(), conv_dim=(128, 128, 128), fused_conv=True,
+                              fused_ln_gelu=True)
+    cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5), embedder=emb,
+                         unet=UNetConfig(freq_bins=64, frames=24, base_channels=4))
+    gpu = ADDvisorPipeline(cfg, device="cuda", seed=5)
+    cpu = ADDvisorPipeline(cfg, device="cpu", seed=5)
+    cpu.encoder.load_state_dict(gpu.encoder.state_dict())
+    cpu.unet.load_state_dict(gpu.unet.state_dict())
+    cpu.logreg = {k: v.cpu() for k, v in gpu.logreg.items()}
+    wav = torch.randn(2, cfg.audio.num_samples, generator=torch.Generator().manual_seed(8)) * 0.1
+    results = []
+    _cuda.reset_launches()
+    for pipe in (gpu, cpu):
+        state = init_train_state(pipe)
+        _, aux = make_train_step(pipe)(state, wav)
+        results.append((aux, [p.grad.cpu() for p in pipe.unet.parameters()], state.w_raw.detach().cpu()))
+    launches = dict(_cuda.LAUNCHES)  # the CPU step launches nothing
+    want = {"attention": 3 * len(gpu.encoder.layers), "stft": 1, "istft": 2, "ln_gelu": 3,
+            "conv_ln_gelu": 6}
+    if launches != want:
+        fail(f"tiny training step: launch counts {launches} != {want}")
+    (aux_g, grads_g, w_g), (aux_c, grads_c, w_c) = results
+    check_close("tiny train losses", aux_g["loss_vec"].cpu(), aux_c["loss_vec"], 1e-4)
+    flat_g, flat_c = (torch.cat([g.flatten() for g in gs]) for gs in (grads_g, grads_c))
+    check_close("tiny train decoder gradients", flat_g, flat_c, 1e-3 * float(flat_c.abs().max()))
+    check_close("tiny train w_raw", w_g, w_c, 1e-5)
 
 
 def main() -> int:
@@ -341,16 +589,38 @@ def main() -> int:
 
     # bf16 needs fused_ln_gelu=True: the port has only kernel D's cast points
     cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True))
+    fused = cfg.replace(embedder=dataclasses.replace(cfg.embedder, fused_conv=True))
     rows: list = []
     with torch.inference_mode():
         check_attention(torch, cfg, rows)
         check_stft(torch, cfg, rows)
         check_ln_gelu(torch, cfg, rows)
+        check_conv_ln_gelu(torch, cfg, rows)
+    check_backwards(torch, cfg)
     torch.cuda.empty_cache()
-    run_explain(torch, cfg, rows)
-    run_tiny_reference(torch)
 
-    order = {"attention": 0, "stft": 1, "istft": 2, "ln_gelu": 3}
+    n_layers, n_conv = cfg.embedder.num_layers, len(cfg.embedder.conv_dim)
+    counts = [run_explain(torch, cfg, {"attention": n_layers, "stft": 1, "istft": 2,
+                                       "ln_gelu": n_conv, "conv_ln_gelu": 0}, reps=2)]
+    torch.cuda.empty_cache()
+    counts.append(run_explain(torch, fused, {"attention": n_layers, "stft": 1, "istft": 2,
+                                             "ln_gelu": 1, "conv_ln_gelu": n_conv - 1}, reps=2))
+    # same seed, same weights: the two frontends differ by bf16 rounding only
+    check_close("explain fused_conv probabilities vs default", counts[1][1], counts[0][1], 0.05)
+    torch.cuda.empty_cache()
+    train_launches = run_training(torch, fused)
+    torch.cuda.empty_cache()
+    run_tiny_reference(torch)
+    run_tiny_training(torch)
+
+    for row in rows:
+        row["launches"] = counts[0][0][row["name"]] + counts[1][0][row["name"]] + train_launches[row["name"]]
+        row["launches_by_path"] = {"explain": counts[0][0][row["name"]],
+                                   "explain_fused_conv": counts[1][0][row["name"]],
+                                   "train_3_steps": train_launches[row["name"]]}
+        if row["launches"] < 1:
+            fail(f"kernel {row['name']} was launched by no driven path")
+    order = {"attention": 0, "stft": 1, "istft": 2, "ln_gelu": 3, "conv_ln_gelu": 4}
     rows.sort(key=lambda r: order[r["name"]])
     for row in rows:
         # a bound is the least time the card could take; B and C's inputs stay

@@ -15,7 +15,8 @@ import torch
 from xai_audio_deepfakes_tpu_torch.config import STFTConfig
 from xai_audio_deepfakes_tpu_torch.ops import stft
 from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain, head_pad_dim
-from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu_, ln_gelu_plain
+from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
+from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu, ln_gelu_, ln_gelu_plain
 from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft as t_istft
 from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import stft as t_stft
 
@@ -36,7 +37,9 @@ def _padded_qkv(rng, b, t, nh, hd):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # full-f32 plain versions: cuDNN's f32 convolutions default to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -75,3 +78,65 @@ def test_ln_gelu_kernel_matches_plain(rng, cuda, dtype, atol, rtol, kind):
     want = ln_gelu_plain(x, g, lb, 1e-5, kind)
     got = ln_gelu_(x.clone(), g, lb, 1e-5, kind)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def _conv_inputs(rng, device, dtype, k, length, batch=2, c=512):
+    x = torch.from_numpy(rng.standard_normal((batch, c, length)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((c, c, k)).astype(np.float32) * (c * k) ** -0.5)
+    cb, lb = (torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1) for _ in range(2))
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32))
+    return x.to(device, dtype), w.to(device, dtype), cb.to(device, dtype), g.to(device), lb.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 3.2e-2)])
+@pytest.mark.parametrize("k,length,c,kind", [(3, 999, 512, "exact"), (2, 499, 512, "tanh"),
+                                             (3, 66, 128, "exact"), (2, 33, 256, "exact")])
+def test_conv_ln_gelu_kernel_matches_plain(rng, cuda, dtype, atol, rtol, k, length, c, kind):
+    """Kernel E against its plain version: f32 sums of 3 * 512 products in
+    another order (2e-5). In bf16 a conv sum may round to the neighbouring
+    bf16 value (the tensor cores' f32 sums differ from cuDNN's in the last
+    bits), and that step passes through two more roundings: up to four bf16
+    steps, 3.2e-2 of |y|, on at most 0.1% of the elements; the rest are
+    within one step."""
+    x, w, cb, g, lb = _conv_inputs(rng, cuda, dtype, k, length, c=c)
+    got = conv_ln_gelu(x, w, cb, g, lb, 1e-5, kind)
+    want = conv_ln_gelu_plain(x, w, cb, g, lb, 1e-5, kind)
+    assert got.shape == want.shape == (2, c, (length - k) // 2 + 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    off = (got.float() - want.float()).abs() > 1e-2 + 1e-2 * want.float().abs()
+    assert float(off.float().mean()) <= 1e-3
+
+
+def _grads(fn, tensors):
+    leaves = [t.detach().clone().requires_grad_() for t in tensors]
+    out = fn(*leaves)
+    (out.float() ** 2).sum().backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["attention", "istft", "ln_gelu", "conv_ln_gelu"])
+def test_kernel_backward_matches_autograd_through_plain(rng, cuda, name):
+    """Forward through the kernel, backward by recomputation: the gradients
+    equal autograd through the plain version (f32; 1e-4 of the gradient's
+    scale, the two differ by the order of f32 sums)."""
+    if name == "attention":
+        tensors = [torch.from_numpy(a).to(cuda) for a in _padded_qkv(rng, 2, 249, 4, 120)]
+        fn, plain = (lambda q, k, v: attention(q, k, v, 4)), (lambda q, k, v: attention_plain(q, k, v, 4))
+    elif name == "istft":
+        tensors = [torch.from_numpy(rng.standard_normal((2, 513, 249)).astype(np.float32)).to(cuda)
+                   for _ in range(2)]
+        fn = lambda re, im: t_istft(re, im, CFG, 80000)  # noqa: E731
+        plain = lambda re, im: stft.istft_plain(re, im, CFG, 80000)  # noqa: E731
+    elif name == "ln_gelu":
+        x, _, _, g, lb = _conv_inputs(rng, cuda, torch.float32, 3, 999)
+        tensors = [x, g, lb]
+        fn = lambda x, g, lb: ln_gelu(x * 1.0, g, lb, 1e-5, "exact")  # noqa: E731
+        plain = lambda x, g, lb: ln_gelu_plain(x, g, lb, 1e-5, "exact")  # noqa: E731
+    else:
+        tensors = list(_conv_inputs(rng, cuda, torch.float32, 3, 999))
+        fn = lambda *a: conv_ln_gelu(*a, 1e-5, "exact")  # noqa: E731
+        plain = lambda *a: conv_ln_gelu_plain(*a, 1e-5, "exact")  # noqa: E731
+    for got, want in zip(_grads(fn, tensors), _grads(plain, tensors)):
+        torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)

@@ -115,15 +115,30 @@ def test_default_device_is_cuda():
             ADDvisorPipeline(_tiny(tc))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("quant", "int8"), ("quant_conv", "int8"), ("fused_conv", True),
-    ("scan_layers", True), ("remat", True), ("fused_attention", False),
-])
-def test_unported_embedder_options_raise(field, value):
+@pytest.mark.parametrize("changes", [
+    {"quant": "int8"}, {"quant_conv": "int8"}, {"scan_layers": True},
+    {"remat": True, "remat_policy": "dots"}, {"fused_attention": False},
+], ids=lambda c: "-".join(c))
+def test_unported_embedder_options_raise(changes):
     cfg = _tiny(tc)
-    cfg = cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, **{field: value}))
+    cfg = cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, **changes))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ADDvisorPipeline(cfg, device="cpu")
+
+
+def test_explain_with_fused_conv_matches_default():
+    """`fused_conv=True` is accepted; with conv widths that kernel E covers,
+    the f32 explain equals the unfused one (probabilities 1e-5) and serving
+    still records no gradient."""
+    wide = tc.dataclasses.replace(tc.EmbedderConfig.tiny(), conv_dim=(128, 128, 128))
+    cfg = _tiny(tc).replace(embedder=wide)
+    fused = cfg.replace(embedder=tc.dataclasses.replace(wide, fused_conv=True, remat=True))
+    wav = np.random.default_rng(2).standard_normal((2, 8000)).astype(np.float32) * 0.1
+    a = ADDvisorPipeline(cfg, device="cpu", seed=3).explain(wav)
+    b = ADDvisorPipeline(fused, device="cpu", seed=3).explain(wav)
+    for name in ("probs_clean", "probs_relevant", "probs_irrelevant"):
+        torch.testing.assert_close(getattr(b, name), getattr(a, name), atol=1e-5, rtol=0)
+        assert not getattr(b, name).requires_grad
 
 
 @pytest.mark.parametrize("fused_ln_gelu,precision,raises", [

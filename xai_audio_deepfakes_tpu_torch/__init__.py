@@ -6,11 +6,15 @@ it, and nothing of JAX. Its layout mirrors the JAX package's:
 
 config    the configuration dataclasses (own copies)
 ops       DSP, masking and the kernel wrappers (attention, STFT/iSTFT,
-          LayerNorm+GELU), each with its plain PyTorch version
+          LayerNorm+GELU, conv+LayerNorm+GELU), each with its plain PyTorch
+          version and a gradient
 csrc      the hand-written CUDA kernels, built with nvcc at first use
 models    UNet mask decoder, wav2vec2 XLS-R embedder, LogReg head
 pipeline  `ADDvisorPipeline.explain(decoder="unet")`, end to end
-convert   the weight bridge from the JAX package's parameter tree
+losses    the LMAC loss
+train     LMAC training of the UNet decoder (`train_addvisor`), checkpoints
+data      the background batch prefetcher
+convert   the weight bridge from and to the JAX package's parameter tree
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """
@@ -26,6 +30,9 @@ _LAZY = {
     "MaskingConvention": ("xai_audio_deepfakes_tpu_torch.config", "MaskingConvention"),
     "LabelPolarity": ("xai_audio_deepfakes_tpu_torch.config", "LabelPolarity"),
     "load_jax_params": ("xai_audio_deepfakes_tpu_torch.convert", "load_jax_params"),
+    "train_addvisor": ("xai_audio_deepfakes_tpu_torch.train.train_addvisor", "train_addvisor"),
+    "make_train_step": ("xai_audio_deepfakes_tpu_torch.train.train_addvisor", "make_train_step"),
+    "init_train_state": ("xai_audio_deepfakes_tpu_torch.train.train_addvisor", "init_train_state"),
 }
 
 

@@ -2,10 +2,11 @@
 
 Field names and defaults are those of `xai_audio_deepfakes_tpu/config.py`, so
 a configuration reads the same on both sides. The port keeps its own copies
-(it imports nothing of the JAX package). `PipelineConfig` carries only the
-sub-configs of the explanation path (`explain(decoder="unet")`); the mel,
-vocoder, feature-decoder, loss, training and mesh configs arrive with the
-slices that use them (ROADMAP.md, Queue 1).
+(it imports nothing of the JAX package). `PipelineConfig` carries the
+sub-configs of the explanation path (`explain(decoder="unet")`) and of LMAC
+training of the UNet decoder (`loss`, `train`); the mel, vocoder,
+feature-decoder and mesh configs arrive with the slices that use them
+(ROADMAP.md, Queue 1).
 
 The port has one formulation of each op: its hand-written kernels on the
 card and their plain PyTorch versions, with the same order of operations,
@@ -22,8 +23,15 @@ honoured only where their values name that formulation, and
   raises.
 - `EmbedderConfig.fused_ln_gelu=False` computes GELU in the compute dtype.
   The same in f32; in bf16 it differs from the kernel's f32 GELU: raises.
+- `EmbedderConfig.fused_conv=True` takes kernel E (conv + LayerNorm + GELU in
+  one pass) for the frontend layers it covers; accepted. In f32 it equals
+  the unfused path; in bf16 it has the kernel's cast points.
 - `EmbedderConfig.fused_interpret` runs the Pallas kernels in interpret
   mode, which is the formulation the port has; accepted.
+- `EmbedderConfig.remat=True` checkpoints each transformer layer
+  (`torch.utils.checkpoint`), which is `remat_policy="full"`; "dots" raises.
+- `TrainConfig.target_quant` other than "none" raises (ROADMAP Queue 1
+  item 6, the int8 variants); `target_gelu="tanh"` is accepted.
 
 Fields that select behaviour this slice does not implement raise
 `NotImplementedError` likewise.
@@ -153,11 +161,56 @@ class UNetConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """LMAC loss: learnable softplus weights over [l_in, l_out, l1], raw
+    init [3.0, 0.5, 3.0]; optional TV regulariser (off at reg_w_tv = 0).
+    `l1_scale` multiplies the L1 sparsity term; 1.0 is the reference formula."""
+
+    w_init: tuple = (3.0, 0.5, 3.0)
+    reg_w_tv: float = 0.0
+    masking: MaskingConvention = MaskingConvention.LINEAR
+    l1_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Trainer: Adam lr 3e-5 for the mask decoder, Adam lr 1e-4 for the loss
+    weights, post-step renorm of w to sum = len(w).
+
+    The epoch loop keeps per-step losses on the device and folds them once
+    per epoch; a probe every `nan_check_every` steps (0 = epoch end only)
+    bounds how long a diverged run continues. `target_gelu` selects the GELU
+    of the gradient-free clean embed that produces the target. With
+    `freeze_l1_weight` the L1 weight takes no gradient step and is left out
+    of the renorm, which then keeps the other weights at sum len(w) - 1.
+    `checkpoint_dir`, `artifact_dir`, `seed` and `donate_buffers` are read by
+    the CLI of the JAX package and kept so that a configuration reads the
+    same on both sides."""
+
+    model_lr: float = 3e-5
+    loss_w_lr: float = 1e-4
+    batch_size: int = 2
+    num_epochs: int = 1000
+    seed: int = 0
+    renorm_loss_w: bool = True
+    nan_check_every: int = 16
+    checkpoint_dir: str = "ckpts"
+    artifact_dir: str = "explanations"
+    checkpoint_every: int = 1
+    donate_buffers: bool = True
+    target_quant: str = "none"  # "none" | "int8" (int8 not ported)
+    target_gelu: str = "exact"  # "exact" | "tanh"
+    freeze_l1_weight: bool = False
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     audio: AudioConfig = AudioConfig()
     stft: STFTConfig = STFTConfig()
     embedder: EmbedderConfig = EmbedderConfig()
     unet: UNetConfig = UNetConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
     masking: MaskingConvention = MaskingConvention.LOG1P
     polarity: LabelPolarity = LabelPolarity.MANIPULATED_IS_ONE
 
@@ -176,9 +229,10 @@ def check_supported(cfg: PipelineConfig) -> None:
         "EmbedderConfig.quant": (e.quant != "none", "Queue 1 item 6"),
         "EmbedderConfig.quant_conv": (e.quant_conv != "none", "Queue 1 item 6"),
         "UNetConfig.quant": (u.quant != "none", "Queue 1 item 6"),
-        "EmbedderConfig.fused_conv": (e.fused_conv, "Queue 2, kernel E"),
         "EmbedderConfig.scan_layers": (e.scan_layers, "Queue 1 item 4"),
-        "EmbedderConfig.remat": (e.remat, "Queue 1 item 7"),
+        "EmbedderConfig.remat_policy other than full": (
+            e.remat and e.remat_policy != "full", "Queue 1 item 7"),
+        "TrainConfig.target_quant": (cfg.train.target_quant != "none", "Queue 1 item 6"),
         "UNetConfig.dtype=bfloat16": (u.dtype != "float32", "Queue 1 item 3"),
     }
     for name, (unsupported, item) in todo.items():
@@ -190,5 +244,6 @@ def check_supported(cfg: PipelineConfig) -> None:
         raise ValueError(f"unknown STFT precision: {cfg.stft.precision!r}")
     if e.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown embedder dtype: {e.dtype!r}")
-    if e.gelu not in ("exact", "tanh"):
-        raise ValueError(f"unknown gelu: {e.gelu!r}")
+    for gelu in (e.gelu, cfg.train.target_gelu):
+        if gelu not in ("exact", "tanh"):
+            raise ValueError(f"unknown gelu: {gelu!r}")

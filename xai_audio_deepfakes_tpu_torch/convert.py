@@ -1,4 +1,7 @@
-"""Weight bridge: the JAX package's parameter tree -> the port's modules.
+"""Weight bridge: the JAX package's parameter tree -> the port's modules,
+and the trained decoder back (`unet_variables_to_jax`, `train_state_to_jax`)
+so that a test can hold updated parameters and running statistics against
+the JAX train state leaf by leaf.
 
 Input: the tree of `ADDvisorPipeline.init_params(...)` (or one loaded from a
 JAX checkpoint) with every leaf converted to a numpy array:
@@ -70,6 +73,44 @@ def unet_state_dict_from_jax(variables: dict) -> dict:
         sd[f"up{i}.bias"] = _t(p[f"up{i}"]["bias"])
     conv("mask_head.0", p["mask_head"])
     return sd
+
+
+def unet_variables_to_jax(model: UNetMaskDecoder) -> dict:
+    """The inverse of `unet_state_dict_from_jax`: the port's UNet as flax
+    variables {"params", "batch_stats"} of numpy arrays."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    p: dict = {}
+    stats: dict = {}
+
+    def conv(prefix):
+        return {"kernel": sd[f"{prefix}.weight"].transpose(2, 3, 1, 0),
+                "bias": sd[f"{prefix}.bias"]}
+
+    def bn(prefix):
+        return ({"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]},
+                {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]})
+
+    for name in ("e1", "e2", "e3", "e4", "d1", "d2", "d3", "d4"):
+        (bn1, st1), (bn2, st2) = bn(f"{name}.block.1"), bn(f"{name}.block.4")
+        p[name] = {"conv1": conv(f"{name}.block.0"), "bn1": bn1,
+                   "conv2": conv(f"{name}.block.3"), "bn2": bn2}
+        stats[name] = {"bn1": st1, "bn2": st2}
+    for i, conv_idx in ((1, 0), (2, 3)):
+        p[f"bneck_conv{i}"] = conv(f"bottleneck.{conv_idx}")
+        p[f"bneck_bn{i}"], stats[f"bneck_bn{i}"] = bn(f"bottleneck.{conv_idx + 1}")
+    for i in (1, 2, 3, 4):
+        k = sd[f"up{i}.weight"].transpose(2, 3, 0, 1)[::-1, ::-1]  # [kh, kw, in, out], flipped
+        p[f"up{i}"] = {"kernel": np.ascontiguousarray(k), "bias": sd[f"up{i}.bias"]}
+    p["mask_head"] = conv("mask_head.0")
+    return {"params": p, "batch_stats": stats}
+
+
+def train_state_to_jax(state) -> dict:
+    """An `AddvisorTrainState` as numpy, under the field names of the JAX
+    package's train state (the optimisers' moments are left out)."""
+    variables = unet_variables_to_jax(state.decoder)
+    return {"unet_params": variables["params"], "unet_batch_stats": variables["batch_stats"],
+            "w_raw": state.w_raw.detach().cpu().numpy(), "step": state.step}
 
 
 def load_unet(model: UNetMaskDecoder, variables: dict) -> None:

@@ -22,6 +22,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// GELU in f32: exact (erff) or the tanh form.
+__device__ __forceinline__ float gelu_f32(float x, int tanh_form) {
+  if (tanh_form) {
+    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+    return 0.5f * x * (1.f + tanhf(inner));
+  }
+  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
+// The cast points that kernels D and E share: the normalised value is rounded
+// to the compute dtype, GELU is taken in f32 from that rounded value, and the
+// result is rounded again.
+template <typename T>
+__device__ __forceinline__ T ln_gelu_value(float v, float mu, float rs, float scale, float bias,
+                                           int tanh_form) {
+  const float normed = (v - mu) * rs * scale + bias;
+  return from_f32<T>(gelu_f32(to_f32(from_f32<T>(normed)), tanh_form));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

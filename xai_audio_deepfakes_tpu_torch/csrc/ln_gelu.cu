@@ -40,14 +40,6 @@ constexpr int THREADS = COLS * GROUPS;
 constexpr int MAX_C = 512;
 constexpr int PER_THREAD = MAX_C / GROUPS;
 
-__device__ __forceinline__ float gelu_f32(float x, int tanh_form) {
-  if (tanh_form) {
-    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.f + tanhf(inner));
-  }
-  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     ln_gelu_kernel(const T* x, const float* __restrict__ scale, const float* __restrict__ bias,
@@ -104,9 +96,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < PER_THREAD; ++i) {
     const int ch = grp + i * GROUPS;
     if (ch < c) {
-      const float normed = (vals[i] - mu) * rs * scale[ch] + bias[ch];
-      const float rounded = to_f32(from_f32<T>(normed));
-      y[row + static_cast<long long>(ch) * l] = from_f32<T>(gelu_f32(rounded, tanh_form));
+      y[row + static_cast<long long>(ch) * l] =
+          ln_gelu_value<T>(vals[i], mu, rs, scale[ch], bias[ch], tanh_form);
     }
   }
 }

@@ -7,17 +7,42 @@ with `load_state_dict` once a DDP `module.` prefix is stripped
 (`load_reference_state_dict`). Encoder channels 1 -> c -> 2c -> 4c -> 8c,
 a dilated 16c bottleneck (d=2, then d=4), transposed-conv decoder with skip
 concats, 1x1 conv and a sigmoid. BatchNorm uses eps 1e-5 and, for training,
-momentum 0.01 (flax's 0.99 in torch's convention).
+momentum 0.01 (flax's 0.99 in torch's convention); in training mode
+(`model.train()`) it normalises with the batch statistics and updates the
+running ones as flax's `nn.BatchNorm` does (`BatchNorm2d` below).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from xai_audio_deepfakes_tpu_torch.config import UNetConfig
 
 _BN = dict(eps=1e-5, momentum=0.01)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose running variance follows the BIASED batch
+    variance, as flax's `nn.BatchNorm` keeps it. torch folds the unbiased
+    estimate, n / (n - 1) times larger with n = B * H * W values per channel,
+    into `running_var`; here that update lands in scratch copies (which the
+    backward pass keeps) and is rescaled on its way into the buffers. The
+    normalisation itself uses the biased variance in both frameworks."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+            self.num_batches_tracked += 1
+        return y
 
 
 class ConvBlock(nn.Module):
@@ -27,10 +52,10 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.block = nn.Sequential(
             nn.Conv2d(cin, cout, kernel, stride, padding),
-            nn.BatchNorm2d(cout, **_BN),
+            BatchNorm2d(cout, **_BN),
             nn.LeakyReLU(slope),
             nn.Conv2d(cout, cout, 3, 1, 1),
-            nn.BatchNorm2d(cout, **_BN),
+            BatchNorm2d(cout, **_BN),
             nn.LeakyReLU(slope),
         )
 
@@ -52,10 +77,10 @@ class UNetMaskDecoder(nn.Module):
         self.e4 = ConvBlock(4 * c, 8 * c, (3, 3), (2, 2), (1, 1), s)
         self.bottleneck = nn.Sequential(
             nn.Conv2d(8 * c, 16 * c, 3, padding=2, dilation=2),
-            nn.BatchNorm2d(16 * c, **_BN),
+            BatchNorm2d(16 * c, **_BN),
             nn.LeakyReLU(s),
             nn.Conv2d(16 * c, 16 * c, 3, padding=4, dilation=4),
-            nn.BatchNorm2d(16 * c, **_BN),
+            BatchNorm2d(16 * c, **_BN),
             nn.LeakyReLU(s),
         )
         self.up4 = nn.ConvTranspose2d(16 * c, 8 * c, 2, stride=2)

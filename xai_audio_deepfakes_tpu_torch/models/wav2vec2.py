@@ -4,11 +4,18 @@
   waveform [B, 80000]
     -> 7 conv layers, each conv -> channel LayerNorm (f32 statistics) ->
        GELU, 320x downsampling -> [B, 512, 249] (kept [B, C, L] throughout,
-       the layout F.conv1d takes; the LN+GELU epilogue is kernel D)
+       the layout F.conv1d takes; the LN+GELU epilogue is kernel D, and with
+       `fused_conv` the stride-2 layers 1-6 are kernel E, conv included)
     -> feature projection: LayerNorm(512) in f32 -> Linear(512 -> 1920)
     -> + grouped positional conv (k 128, 16 groups, trailing frame dropped)
     -> 9 pre-LN transformer layers (attention through kernel A)
     -> hidden_states[output_layer], not final-LN'd unless configured.
+
+The weights are frozen in every use the system has (serving, and LMAC
+training, where the gradient passes through the embedder to the waveform), so
+a gradient flows to the input through the kernels' autograd functions. With
+`remat` each transformer layer is recomputed in the backward pass
+(`torch.utils.checkpoint`, the "full" policy).
 
 Dense and conv weights are stored in the compute dtype (the JAX package
 casts its f32 weights to that dtype at every use, which gives the same
@@ -24,14 +31,19 @@ the parity tests' tolerances cover.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig
 from xai_audio_deepfakes_tpu_torch.device import torch_dtype
 from xai_audio_deepfakes_tpu_torch.ops.attention import attention, head_pad_dim
-from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu_
+from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, supports_fused_conv
+from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu
 
 
 def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -58,11 +70,14 @@ class _LNParams(nn.Module):
 
 class ConvLayerNormBlock(nn.Module):
     """conv1d -> channel LayerNorm with f32 statistics (`_LNf32Stats`) ->
-    GELU, the last two fused in kernel D. [B, Cin, L] -> [B, Cout, L']."""
+    GELU. [B, Cin, L] -> [B, Cout, L']. With `cfg.fused_conv`, a layer that
+    kernel E covers runs all three in it; any other layer runs cuDNN's conv
+    and kernel D."""
 
     def __init__(self, cin, cout, kernel, stride, cfg: EmbedderConfig, generator, device):
         super().__init__()
         self.cfg = cfg
+        self.fusable = supports_fused_conv(kernel, stride, cin, cout)
         dt = torch_dtype(cfg.dtype)
         self.conv = nn.Conv1d(cin, cout, kernel, stride, bias=cfg.conv_bias,
                               device=device, dtype=dt)
@@ -72,9 +87,11 @@ class ConvLayerNormBlock(nn.Module):
         self.layer_norm = _LNParams(cout, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
-        return ln_gelu_(y, self.layer_norm.weight, self.layer_norm.bias,
-                        self.cfg.layer_norm_eps, self.cfg.gelu)
+        cfg, ln = self.cfg, self.layer_norm
+        if cfg.fused_conv and self.fusable:
+            return conv_ln_gelu(x, self.conv.weight, self.conv.bias, ln.weight, ln.bias,
+                                cfg.layer_norm_eps, cfg.gelu)
+        return ln_gelu(self.conv(x), ln.weight, ln.bias, cfg.layer_norm_eps, cfg.gelu)
 
 
 class FeatureEncoder(nn.Module):
@@ -118,7 +135,7 @@ class PositionalConvEmbedding(nn.Module):
     def __init__(self, cfg: EmbedderConfig, generator, device):
         super().__init__()
         h, k, g = cfg.hidden_size, cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
-        self.k, self.gelu = k, cfg.gelu
+        self.k, self.cfg = k, cfg
         self.conv = nn.Conv1d(h, h, k, padding=k // 2, groups=g, device=device,
                               dtype=torch_dtype(cfg.dtype))
         _init_dense_(self.conv.weight, k * h // g, generator)
@@ -128,7 +145,7 @@ class PositionalConvEmbedding(nn.Module):
         y = self.conv(x.transpose(1, 2))
         if self.k % 2 == 0:
             y = y[..., :-1]
-        return _gelu(y, self.gelu).transpose(1, 2)
+        return _gelu(y, self.cfg.gelu).transpose(1, 2)
 
 
 class HeadDense(nn.Module):
@@ -210,11 +227,24 @@ class Wav2Vec2Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg, generator, device) for _ in range(n_run))
         self.final_ln = _LNParams(cfg.hidden_size, device) if cfg.final_layer_norm else None
 
+    def with_gelu(self, gelu: str) -> "Wav2Vec2Encoder":
+        """A second encoder over the SAME parameters whose modules compute
+        `gelu` ("exact" | "tanh"): the trainer's gradient-free target pass
+        (`TrainConfig.target_gelu`). No weight is copied."""
+        shared = {id(p): p for p in self.parameters()}
+        view = copy.deepcopy(self, shared)
+        cfg = dataclasses.replace(self.cfg, gelu=gelu)
+        for module in view.modules():
+            if hasattr(module, "cfg"):
+                module.cfg = cfg
+        return view
+
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         x = self.feature_projection(self.feature_encoder(wav))
         x = x + self.pos_conv(x)
+        remat = self.cfg.remat and torch.is_grad_enabled() and x.requires_grad
         for layer in self.layers:
-            x = layer(x)
+            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
         if self.final_ln is not None:
             x = self.final_ln(x, self.cfg.layer_norm_eps)
         return x.float()

@@ -28,10 +28,10 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attention.cu", "stft.cu", "istft.cu", "ln_gelu.cu", "errors.cu")
+SOURCES = ("attention.cu", "stft.cu", "istft.cu", "ln_gelu.cu", "conv_ln_gelu.cu", "errors.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-LAUNCHES = {"attention": 0, "stft": 0, "istft": 0, "ln_gelu": 0}
+LAUNCHES = {"attention": 0, "stft": 0, "istft": 0, "ln_gelu": 0, "conv_ln_gelu": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "addv_ln_gelu": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, ctypes.c_float,
                      _INT, _INT, _VOID],
     "addv_ln_gelu_max_c": [],
+    "addv_conv_ln_gelu": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
+                          ctypes.c_float, _INT, _INT, _VOID],
+    "addv_conv_ln_gelu_max_c": [],
 }
 
 _lib: ctypes.CDLL | None = None

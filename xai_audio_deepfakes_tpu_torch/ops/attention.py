@@ -4,6 +4,11 @@ version, and the port of `ops/attention.py::attention_reference`.
 Activations arrive head-padded, [B, T, NH * HDP] with HDP = 128 and exact
 zero pad lanes (the port's `HeadDense` pads the projection weights), and q is
 pre-scaled by hd^-0.5. The kernel is `csrc/attention.cu`.
+
+The gradient is `_Attention`: the forward launches the kernel, the backward
+recomputes the normalised f32 softmax from the saved q, k, v and forms dq, dk
+and dv in plain PyTorch, as `_attention_bwd` of the JAX package does. It does
+not differentiate the kernel's own cast points.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from xai_audio_deepfakes_tpu_torch.ops import _cuda
+from xai_audio_deepfakes_tpu_torch.ops._autograd import needs_grad
 
 
 def head_pad_dim(hd: int) -> int:
@@ -39,11 +45,46 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) 
     return ctx.to(q.dtype).transpose(1, 2).reshape(b, t, f)
 
 
+def attention_backward(q, k, v, nh: int, grad):
+    """(dq, dk, dv) of softmax(q k^T) v against `grad`, all [B, T, NH * HDP]:
+    f32 throughout, results cast to the inputs' dtype."""
+    b, t, f = q.shape
+    heads = lambda x: x.float().reshape(b, t, nh, f // nh).transpose(1, 2)  # noqa: E731
+    qf, kf, vf, g = heads(q), heads(k), heads(v), heads(grad)  # [B, NH, T, HDP]
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)), dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq, dk = torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf)
+    flat = lambda x: x.transpose(1, 2).reshape(b, t, f).to(q.dtype)  # noqa: E731
+    return flat(dq), flat(dk), flat(dv)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, nh):
+        ctx.save_for_backward(q, k, v)
+        ctx.nh = nh
+        return _forward(q, k, v, nh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*attention_backward(*ctx.saved_tensors, ctx.nh, grad), None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
     """[B, T, NH * 128] q, k, v -> ctx of the same shape and dtype. CPU
-    tensors take the plain version; CUDA tensors launch kernel A."""
+    tensors take the plain version; CUDA tensors launch kernel A. Carries a
+    gradient to q, k and v (`_Attention`)."""
+    if needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, nh)
+    return _forward(q, k, v, nh)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_plain(q, k, v, nh)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _cuda.require_cuda("attention", q, k, v, dtypes=tuple(_cuda.DTYPE_CODES))
     if not (q.shape == k.shape == v.shape and q.dtype == k.dtype == v.dtype and q.ndim == 3):
         raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")

@@ -3,8 +3,11 @@ and its plain version (the port's counterpart of `ops/pallas_ln_gelu.py`).
 
 The activation is [B, C, L], the layout F.conv1d produces and consumes, so
 the frontend never transposes it; statistics run over C for each (b, l).
-The result is written in place, into x's buffer, as the Pallas kernel
-aliases its output to its input when the dtypes match. The kernel is
+`ln_gelu_` writes in place, into x's buffer, as the Pallas kernel aliases its
+output to its input when the dtypes match. `ln_gelu` is what the embedder
+calls: in place when no gradient is recorded (serving keeps its memory), and
+out of place through `_LnGelu` when one is, because the backward recomputes
+from the input the in-place launch would have overwritten. The kernel is
 `csrc/ln_gelu.cu`.
 """
 
@@ -14,29 +17,28 @@ import torch
 import torch.nn.functional as F
 
 from xai_audio_deepfakes_tpu_torch.ops import _cuda
+from xai_audio_deepfakes_tpu_torch.ops._autograd import needs_grad, recompute_vjp
+
+
+def ln_gelu_from_f32(a32, scale, bias, eps: float, gelu: str, dtype) -> torch.Tensor:
+    """[B, C, L] f32 -> GELU(LN_C(a32)) in `dtype`, with the kernels' cast
+    points: f32 mean, centred f32 variance, rsqrt(var + eps), f32 scale and
+    bias, cast to `dtype`, then GELU in f32 from that value, cast back."""
+    mu = a32.mean(dim=1, keepdim=True)
+    xc = a32 - mu
+    var = (xc * xc).mean(dim=1, keepdim=True)
+    normed = xc * torch.rsqrt(var + eps) * scale.float()[:, None] + bias.float()[:, None]
+    normed = normed.to(dtype).float()
+    return F.gelu(normed, approximate="tanh" if gelu == "tanh" else "none").to(dtype)
 
 
 def ln_gelu_plain(x, scale, bias, eps: float, gelu: str) -> torch.Tensor:
-    """Plain version of kernel D (returns a new tensor): f32 mean, centred
-    f32 variance, rsqrt(var + eps), f32 scale and bias, cast to x's dtype,
-    then GELU in f32 from that value, cast back."""
-    x32 = x.float()
-    mu = x32.mean(dim=1, keepdim=True)
-    xc = x32 - mu
-    var = (xc * xc).mean(dim=1, keepdim=True)
-    normed = xc * torch.rsqrt(var + eps) * scale.float()[:, None] + bias.float()[:, None]
-    normed = normed.to(x.dtype).float()
-    return F.gelu(normed, approximate="tanh" if gelu == "tanh" else "none").to(x.dtype)
+    """Plain version of kernel D (returns a new tensor)."""
+    return ln_gelu_from_f32(x.float(), scale, bias, eps, gelu, x.dtype)
 
 
-def ln_gelu_(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float, gelu: str) -> torch.Tensor:
-    """In place: x [B, C, L] <- GELU(LN_C(x)); returns x. scale and bias are
-    [C] f32. CPU tensors take the plain version; CUDA tensors launch kernel D."""
-    if gelu not in ("exact", "tanh"):
-        raise ValueError(f"unknown gelu {gelu!r}")
-    if x.device.type == "cpu":
-        return x.copy_(ln_gelu_plain(x, scale, bias, eps, gelu))
+def _launch(x: torch.Tensor, out: torch.Tensor, scale, bias, eps: float, gelu: str) -> torch.Tensor:
+    """Kernel D from x into out (which may be x)."""
     _cuda.require_cuda("ln_gelu", x, dtypes=tuple(_cuda.DTYPE_CODES))
     _cuda.require_cuda("ln_gelu", scale, bias)
     if x.ndim != 3:
@@ -49,9 +51,56 @@ def ln_gelu_(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if scale.device != x.device:
         raise ValueError("ln_gelu: scale and bias must be on x's device")
     err = lib.addv_ln_gelu(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), x.data_ptr(), b, c, length,
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, length,
         float(eps), int(gelu == "tanh"), _cuda.DTYPE_CODES[x.dtype], _cuda.stream_handle(x),
     )
     _cuda.check(err, "ln_gelu")
     _cuda.LAUNCHES["ln_gelu"] += 1
-    return x
+    return out
+
+
+def _check_gelu(gelu: str) -> None:
+    if gelu not in ("exact", "tanh"):
+        raise ValueError(f"unknown gelu {gelu!r}")
+
+
+def ln_gelu_(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float, gelu: str) -> torch.Tensor:
+    """In place: x [B, C, L] <- GELU(LN_C(x)); returns x. scale and bias are
+    [C] f32. CPU tensors take the plain version; CUDA tensors launch kernel D."""
+    _check_gelu(gelu)
+    if x.device.type == "cpu":
+        return x.copy_(ln_gelu_plain(x, scale, bias, eps, gelu))
+    return _launch(x, x, scale, bias, eps, gelu)
+
+
+class _LnGelu(torch.autograd.Function):
+    """Forward: kernel D into a fresh tensor (the plain version on the CPU).
+    Backward: autograd through `ln_gelu_plain` from the saved input."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, gelu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps, ctx.gelu = eps, gelu
+        if x.device.type == "cpu":
+            return ln_gelu_plain(x, scale, bias, eps, gelu)
+        x = x.contiguous()
+        return _launch(x, torch.empty_like(x), scale, bias, eps, gelu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        eps, gelu = ctx.eps, ctx.gelu
+        grads = recompute_vjp(lambda x, g, b: ln_gelu_plain(x, g, b, eps, gelu),
+                              ctx.saved_tensors, ctx.needs_input_grad[:3], grad)
+        return (*grads, None, None)
+
+
+def ln_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float, gelu: str) -> torch.Tensor:
+    """GELU(LN_C(x)) for x [B, C, L]. x is overwritten and returned when no
+    gradient is recorded; otherwise the result is a new tensor with a
+    gradient to x, scale and bias."""
+    _check_gelu(gelu)
+    if needs_grad(x, scale, bias):
+        return _LnGelu.apply(x, scale, bias, eps, gelu)
+    return ln_gelu_(x, scale, bias, eps, gelu)

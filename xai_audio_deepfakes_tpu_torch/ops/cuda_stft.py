@@ -3,6 +3,10 @@ of `ops/pallas_stft.py`).
 
 CPU tensors take the plain versions in `ops/stft.py`; CUDA tensors launch
 `csrc/stft.cu` and `csrc/istft.cu`. Both kernels work in f32.
+
+Both transforms are linear, so their gradients (`_Stft`, `_Istft`) are the
+vjps of the plain versions and need no saved input, as the `bwd`s of
+`make_fused_stft` / `make_fused_istft` in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ import torch
 
 from xai_audio_deepfakes_tpu_torch.config import STFTConfig
 from xai_audio_deepfakes_tpu_torch.ops import _cuda
+from xai_audio_deepfakes_tpu_torch.ops._autograd import needs_grad, recompute_vjp
 from xai_audio_deepfakes_tpu_torch.ops.stft import (
     device_constant,
     istft_plain,
@@ -19,10 +24,43 @@ from xai_audio_deepfakes_tpu_torch.ops.stft import (
 )
 
 
+class _Stft(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cfg):
+        ctx.cfg, ctx.like = cfg, (x.shape, x.device)
+        return _stft_forward(x, cfg)
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        zeros = torch.zeros(ctx.like[0], device=ctx.like[1])
+        (gx,) = recompute_vjp(lambda x: stft_plain(x, ctx.cfg), (zeros,), (True,), (g_re, g_im))
+        return gx, None
+
+
+class _Istft(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, real, imag, cfg, length):
+        ctx.cfg, ctx.length, ctx.like = cfg, length, (real.shape, real.device)
+        return _istft_forward(real, imag, cfg, length)
+
+    @staticmethod
+    def backward(ctx, grad):
+        zeros = torch.zeros(ctx.like[0], device=ctx.like[1])
+        g_re, g_im = recompute_vjp(lambda re, im: istft_plain(re, im, ctx.cfg, ctx.length),
+                                   (zeros, zeros), ctx.needs_input_grad[:2], grad)
+        return g_re, g_im, None, None
+
+
 def stft(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, L] (or [L]) f32 -> (re, im), each [B, n_fft//2+1, T]."""
     if x.ndim == 1:
         x = x[None]
+    if needs_grad(x):
+        return _Stft.apply(x, cfg)
+    return _stft_forward(x, cfg)
+
+
+def _stft_forward(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return stft_plain(x, cfg)
     _cuda.require_cuda("stft", x)
@@ -56,6 +94,13 @@ def istft(real: torch.Tensor, imag: torch.Tensor, cfg: STFTConfig, length: int) 
     """(re, im) [B, n_fft//2+1, T] f32 -> waveform [B, length]."""
     if real.ndim == 2:
         real, imag = real[None], imag[None]
+    if needs_grad(real, imag):
+        return _Istft.apply(real, imag, cfg, length)
+    return _istft_forward(real, imag, cfg, length)
+
+
+def _istft_forward(real: torch.Tensor, imag: torch.Tensor, cfg: STFTConfig,
+                   length: int) -> torch.Tensor:
     if real.device.type == "cpu":
         return istft_plain(real, imag, cfg, length)
     real, imag = real.contiguous(), imag.contiguous()

@@ -6,7 +6,12 @@ The JAX pipeline is a frozen bundle of module definitions whose stages are
 pure functions of (params, arrays). Here the pipeline owns its modules and
 their weights; `convert.load_jax_params` sets them from a JAX parameter tree,
 and a fresh pipeline has random weights drawn from a seeded torch.Generator.
-Every entry point runs under `torch.inference_mode()`.
+The embedder and the LogReg head are frozen; the UNet is what training
+updates, in place.
+
+Every serving entry point runs under `torch.inference_mode()`. The stages
+the trainer differentiates through (`embed`, `stft_stage`, `istft_stage`)
+are the same code without that decorator.
 """
 
 from __future__ import annotations
@@ -65,16 +70,29 @@ class ADDvisorPipeline:
         torch.backends.cudnn.allow_tf32 = False
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.encoder = Wav2Vec2Encoder(cfg.embedder, gen, self.device).eval()
+        self.encoder.requires_grad_(False)
         self.unet = init_unet_(UNetMaskDecoder(cfg.unet).to(self.device), gen).eval()
         self.logreg = logreg_init(cfg.embedder.hidden_size, gen, self.device)
 
     def _as_input(self, wav) -> torch.Tensor:
         return torch.as_tensor(wav, dtype=torch.float32, device=self.device).contiguous()
 
+    def embed(self, wav: torch.Tensor, encoder: Wav2Vec2Encoder | None = None) -> torch.Tensor:
+        """wav [B, L] on the device -> features [B, T, H] f32 (normalise,
+        then embed), carrying a gradient to wav when it asks for one."""
+        encoder = self.encoder if encoder is None else encoder
+        return encoder(zero_mean_unit_var_norm(wav))
+
+    def stft_stage(self, wav: torch.Tensor):
+        return stft_magnitude_phase(wav, self.cfg.stft)
+
+    def istft_stage(self, real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
+        return istft(real, imag, self.cfg.stft, length=self.cfg.audio.num_samples)
+
     @torch.inference_mode()
     def features(self, wav) -> torch.Tensor:
         """wav [B, L] -> features [B, T, H] f32 (normalise, then embed)."""
-        return self.encoder(zero_mean_unit_var_norm(self._as_input(wav)))
+        return self.embed(self._as_input(wav))
 
     @torch.inference_mode()
     def classify_features(self, feats: torch.Tensor):
@@ -87,11 +105,11 @@ class ADDvisorPipeline:
     @torch.inference_mode()
     def spectrogram(self, wav):
         """wav [B, L] -> (real, imag, magnitude, phase), each [B, 513, 249]."""
-        return stft_magnitude_phase(self._as_input(wav), self.cfg.stft)
+        return self.stft_stage(self._as_input(wav))
 
     @torch.inference_mode()
     def istft(self, real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
-        return istft(real, imag, self.cfg.stft, length=self.cfg.audio.num_samples)
+        return self.istft_stage(real, imag)
 
     @torch.inference_mode()
     def predict_mask(self, magnitude: torch.Tensor) -> torch.Tensor:
