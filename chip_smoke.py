@@ -8,13 +8,18 @@ PyTorch built for CUDA. It
 
  1. prints the card's name and power limit (nvidia-smi);
  2. builds the hand-written kernels from `xai_audio_deepfakes_tpu_torch/csrc`
-    and prints the build seconds and ptxas' register / shared-memory report;
+    and prints the build seconds and ptxas' register / shared-memory report,
+    and counts the HMMA (tensor-core) instructions of the bf16 attention
+    body in the library's SASS (`cuobjdump -sass`), which must not be 0;
  3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
     E conv+LayerNorm+GELU) against its plain PyTorch version at the main
     path's shapes (8 clips, embedder batch 24), in f32 and in the working
     dtype, each beside its tolerance, and times the kernel, the plain version
     and one PyTorch library call that computes the same function (timed
-    only; the port never calls it);
+    only; the port never calls it) by CUDA events; for A, B and C also the
+    device time per call of the kernel and of the library call from a
+    torch.profiler trace (`kernel_device_ms`, `library_device_ms`), which
+    leave out the host's per-call overhead;
  4. holds the backward of A, C, D and E (forward through the kernel, backward
     by recomputation) against autograd through the plain version, at the
     training step's shapes (2 clips);
@@ -36,7 +41,8 @@ PyTorch built for CUDA. It
     scale, loss weights 1e-5);
  8. prints the `kernels` JSON line and, last, the device line. A kernel's
     `launches` are those of every driven path together (two explains and
-    the counted training steps), each path counted from zero.
+    the counted training steps), each path counted from zero; its `body`
+    names the design that ran.
 
 Any failed phase exits non-zero without the last line. Without CUDA it exits
 1 before printing anything.
@@ -80,6 +86,25 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, match: str = "", iters: int = 20) -> float | None:
+    """Device time of one call of fn() in the kernels whose names hold
+    `match` (all kernels with the default), from a torch.profiler trace of
+    `iters` calls: device time alone, without the host's per-call overhead
+    that CUDA events around a small call take in. None if the trace shows no
+    such kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = {(ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if str(ev.device_type).endswith("CUDA") and match in ev.name}
+    return sum(end - start for _, start, end in spans) / 1e3 / iters if spans else None
+
+
 def check_close(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
     import torch
 
@@ -108,6 +133,28 @@ def fft_frame_ops(n_fft: int) -> float:
     compute a direct DFT (4 N (N/2+1) per frame), but the bound counts the
     least work the function needs."""
     return 2.5 * n_fft * math.log2(n_fft) + n_fft
+
+
+def check_sass(lib_path: Path) -> None:
+    """Count the tensor-core instructions (HMMA) of the bf16 attention body
+    in the built library's SASS; fails if there are none."""
+    import shutil
+
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        print("cuobjdump not found: SASS not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(maxsplit=1)[0]
+        if "attention" in name:
+            counts[name] = section.count("HMMA")
+    print(f"HMMA instructions per attention kernel (SASS): {counts}")
+    if not any(n > 0 for name, n in counts.items() if "bf16" in name):
+        fail("the bf16 attention body has no HMMA instruction")
 
 
 def check_attention(torch, cfg, rows: list) -> None:
@@ -148,7 +195,11 @@ def check_attention(torch, cfg, rows: list) -> None:
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain,
                      bound_ms=bnd, bound_by=by, library_ms=lib,
                      f32_max_abs_err=errs[torch.float32], shape=[b, t, nh * hdp],
-                     dtype="bfloat16"))
+                     kernel_device_ms=kernel_device_ms(lambda: attention(q, k, v, nh),
+                                                       "attention_bf16_kernel"),
+                     library_device_ms=kernel_device_ms(lambda: sdpa(qh, kh, vh, scale=1.0)),
+                     dtype="bfloat16", body="bf16: mma.sync m16n8k16 from ldmatrix, two passes "
+                     "over K, cp.async K/V ring; f32: CUDA-core FMAs, score tile in shared memory"))
 
 
 def check_stft(torch, cfg, rows: list) -> None:
@@ -168,8 +219,11 @@ def check_stft(torch, cfg, rows: list) -> None:
     err = max(check_close("B stft re", re, re_p, 2e-4), check_close("B stft im", im, im_p, 2e-4))
     t = re.shape[-1]
     win = device_constant("window", x.device, sc.window, sc.win_length, sc.n_fft)
-    lib = time_ms(lambda: torch.stft(x, sc.n_fft, sc.hop_length, sc.n_fft, win, center=True,
-                                     pad_mode="reflect", return_complex=True))
+    def stft_lib():
+        return torch.stft(x, sc.n_fft, sc.hop_length, sc.n_fft, win, center=True,
+                          pad_mode="reflect", return_complex=True)
+
+    lib = time_ms(stft_lib)
     ops = BATCH * t * fft_frame_ops(sc.n_fft)
     # the signal read once, re and im written once (the inverse moves the same)
     nbytes = 4 * (BATCH * n + 2 * BATCH * sc.num_bins * t)
@@ -178,7 +232,11 @@ def check_stft(torch, cfg, rows: list) -> None:
                      replaces="xai_audio_deepfakes_tpu/ops/pallas_stft.py:107",
                      max_abs_err=err, ms=time_ms(lambda: stft(x, sc)),
                      plain_ms=time_ms(lambda: stft_plain(x, sc)), bound_ms=bnd, bound_by=by,
-                     library_ms=lib, shape=[BATCH, n], dtype="float32"))
+                     library_ms=lib, shape=[BATCH, n], dtype="float32",
+                     kernel_device_ms=kernel_device_ms(lambda: stft(x, sc), "stft_fft_kernel"),
+                     library_device_ms=kernel_device_ms(stft_lib),
+                     body="radix-8 Stockham FFT of the even/odd-packed frame in shared memory, "
+                     "split step, reflect pad folded into the read"))
 
     mask = torch.rand(re.shape, device="cuda", generator=g)
     re_m, im_m = (re_p * mask).contiguous(), (im_p * mask).contiguous()
@@ -186,8 +244,10 @@ def check_stft(torch, cfg, rows: list) -> None:
     torch.cuda.synchronize()
     err = check_close("C istft", y, istft_plain(re_m, im_m, sc, n), 2e-4)
     spec = torch.complex(re_m, im_m)
-    lib = time_ms(lambda: torch.istft(spec, sc.n_fft, sc.hop_length, sc.n_fft, win,
-                                      center=True, length=n))
+    def istft_lib():
+        return torch.istft(spec, sc.n_fft, sc.hop_length, sc.n_fft, win, center=True, length=n)
+
+    lib = time_ms(istft_lib)
     # per frame the inverse FFT and window, plus overlap-add and envelope
     # division per output sample
     bnd, by = bound_ms(nbytes, ops + 2 * BATCH * n, "float32")
@@ -196,7 +256,11 @@ def check_stft(torch, cfg, rows: list) -> None:
                      max_abs_err=err, ms=time_ms(lambda: istft(re_m, im_m, sc, n)),
                      plain_ms=time_ms(lambda: istft_plain(re_m, im_m, sc, n)),
                      bound_ms=bnd, bound_by=by, library_ms=lib,
-                     shape=[BATCH, sc.num_bins, t], dtype="float32"))
+                     shape=[BATCH, sc.num_bins, t], dtype="float32",
+                     kernel_device_ms=kernel_device_ms(lambda: istft(re_m, im_m, sc, n),
+                                                       "istft_kernel"),
+                     library_device_ms=kernel_device_ms(istft_lib),
+                     body="direct inverse DFT against L2-resident bases, gather overlap-add"))
 
 
 def frontend_lengths(cfg) -> list[int]:
@@ -245,6 +309,7 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
                      shape=[b, c, frontend_lengths(cfg)], dtype="bfloat16",
+                     body="one warp per 32 frames, statistics over the strided channel axis",
                      note="ms, plain_ms, library_ms and bound_ms summed over the 7 frontend shapes"))
 
 
@@ -317,6 +382,7 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
                      shape=[b, c, lengths[:-1]], dtype="bfloat16", gflop=ops / 1e9, ms_by_layer=by_layer,
+                     body="bf16: WMMA 16x16x16 on transposed samples; f32: CUDA-core FMAs",
                      share_over_one_bf16_step=worst_share,
                      note="ms, plain_ms, library_ms and bound_ms summed over frontend layers 1-6"))
 
@@ -584,8 +650,9 @@ def main() -> int:
     _cuda.library()
     print(f"kernels built in {_cuda.build_log['seconds']:.1f} s")
     for line in _cuda.build_log.get("ptxas", "").splitlines():
-        if "Used" in line or "spill" in line or line.startswith("=="):
+        if "Used" in line or "spill" in line or "Compiling entry" in line or line.startswith("=="):
             print("  " + line.strip())
+    check_sass(_cuda.build())
 
     # bf16 needs fused_ln_gelu=True: the port has only kernel D's cast points
     cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True))

@@ -54,6 +54,68 @@ def test_attention_kernel_matches_plain(rng, cuda, dtype, atol, rtol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("b,t,nh", [(2, 1, 4), (2, 15, 4), (2, 64, 4), (2, 200, 4), (2, 249, 4),
+                                    (2, 249, 16)])
+def test_attention_kernel_ragged_t_and_training_shape(rng, cuda, dtype, atol, rtol, b, t, nh):
+    """Both bodies at key counts that leave a partial 64-key chunk (or none),
+    and at the training step's shape (2 clips, 16 heads); pad lanes stay
+    exactly zero."""
+    hd = 120
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _padded_qkv(rng, b, t, nh, hd))
+    out = attention(q, k, v, nh)
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v, nh).float(), atol=atol, rtol=rtol)
+    assert not out.reshape(b, t, nh, -1)[..., hd:].any()
+
+
+@pytest.mark.gpu
+def test_attention_bf16_body_streams_past_the_f32_tile(rng, cuda):
+    """The bf16 body streams the keys, so T may exceed what the f32 body's
+    shared-memory score tile holds."""
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    t = _cuda.library().addv_attention_max_t() + 100
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _padded_qkv(rng, 1, t, 2, 120))
+    out = attention(q, k, v, 2)
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v, 2).float(), atol=1e-2, rtol=1e-2)
+    with pytest.raises(ValueError, match="f32 body"):
+        attention(q.float(), k.float(), v.float(), 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("length", [8000, 80000, 80001])
+def test_stft_fft_body_matches_plain(rng, cuda, batch, length):
+    """The FFT body (n_fft 1024) with the reflect pad folded into its read,
+    one launch, against the matmul DFT of `stft_plain` (2e-4)."""
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    x = torch.from_numpy(rng.standard_normal((batch, length)).astype(np.float32) * 0.3).to(cuda)
+    before = _cuda.LAUNCHES["stft"]
+    re, im = t_stft(x, CFG)
+    assert _cuda.LAUNCHES["stft"] == before + 1
+    assert re.shape == im.shape == (batch, CFG.num_bins, 1 + length // CFG.hop_length)
+    re_p, im_p = stft.stft_plain(x, CFG)
+    torch.testing.assert_close(re, re_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(im, im_p, atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [STFTConfig(n_fft=640, win_length=640),
+                                 STFTConfig(n_fft=512, hop_length=128, win_length=400, window="hann"),
+                                 STFTConfig(center=False)],
+                         ids=["dft_body_640", "fft_512_hann", "fft_uncentred"])
+def test_stft_other_configs_match_plain(rng, cuda, cfg):
+    """n_fft 640 goes through the kept direct-DFT body; the uncentred case
+    takes no pad at all."""
+    x = torch.from_numpy(rng.standard_normal((2, 16000)).astype(np.float32) * 0.3).to(cuda)
+    re, im = t_stft(x, cfg)
+    re_p, im_p = stft.stft_plain(x, cfg)
+    torch.testing.assert_close(re, re_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(im, im_p, atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
 def test_stft_kernels_match_plain(rng, cuda):
     x = torch.from_numpy(rng.standard_normal((3, 80000)).astype(np.float32) * 0.3).to(cuda)
     re, im = t_stft(x, CFG)

@@ -4,8 +4,8 @@ The sources under `csrc/` are compiled with nvcc for `sm_90a`, one nvcc per
 source, all started together, into one shared library with a plain C
 interface that ctypes loads. The build happens at first use, into the
 checkout's `build/kernels/` (listed in `.gitignore`, see `build_dir`); the
-library's name carries a hash of the sources, so an edited source is
-rebuilt. Nothing
+library's name carries a hash of the sources and headers, so an edited
+file is rebuilt. Nothing
 here runs at import time: on a machine without nvcc or a card the module
 imports, and only the kernel launches fail.
 
@@ -40,7 +40,9 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "addv_attention": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _VOID],
     "addv_attention_max_t": [],
-    "addv_stft": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _VOID],
+    "addv_stft": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+                  _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
+    "addv_stft_fft": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
     "addv_istft": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                    _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
     "addv_ln_gelu": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, ctypes.c_float,
@@ -72,8 +74,10 @@ def _nvcc() -> str:
 
 
 def _sources_hash() -> str:
+    """Hash of the target, the sources and every header under `csrc/`, so
+    that an edited header rebuilds the library too."""
     h = hashlib.sha256(ARCH.encode())
-    for name in sorted(SOURCES + ("common.cuh",)):
+    for name in sorted(SOURCES + tuple(p.name for p in CSRC.glob("*.cuh"))):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

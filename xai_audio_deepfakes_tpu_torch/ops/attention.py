@@ -3,7 +3,9 @@ version, and the port of `ops/attention.py::attention_reference`.
 
 Activations arrive head-padded, [B, T, NH * HDP] with HDP = 128 and exact
 zero pad lanes (the port's `HeadDense` pads the projection weights), and q is
-pre-scaled by hd^-0.5. The kernel is `csrc/attention.cu`.
+pre-scaled by hd^-0.5. The kernel is `csrc/attention.cu`: in bf16 a
+tensor-core body that streams the keys (any T), in f32 a CUDA-core body
+whose score tile bounds T (`addv_attention_max_t`).
 
 The gradient is `_Attention`: the forward launches the kernel, the backward
 recomputes the normalised f32 softmax from the saved q, k, v and forms dq, dk
@@ -92,8 +94,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torc
     if f % nh or f // nh != 128:
         raise ValueError(f"attention: the kernel takes head dim 128, got {f} / {nh}")
     lib = _cuda.library()
-    if t > lib.addv_attention_max_t():
-        raise ValueError(f"attention: T={t} exceeds the kernel's score tile")
+    if q.dtype == torch.float32 and t > lib.addv_attention_max_t():
+        raise ValueError(f"attention: T={t} exceeds the f32 body's score tile")
     out = torch.empty_like(q)
     err = lib.addv_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, nh, f // nh,

@@ -2,7 +2,10 @@
 of `ops/pallas_stft.py`).
 
 CPU tensors take the plain versions in `ops/stft.py`; CUDA tensors launch
-`csrc/stft.cu` and `csrc/istft.cu`. Both kernels work in f32.
+`csrc/stft.cu` and `csrc/istft.cu`. Both kernels work in f32. Kernel B is a
+shared-memory FFT for a power-of-two n_fft (every configuration of the repo)
+and a direct DFT otherwise (`uses_fft`); either way it reads the signal
+itself, the reflect pad folded into the read.
 
 Both transforms are linear, so their gradients (`_Stft`, `_Istft`) are the
 vjps of the plain versions and need no saved input, as the `bwd`s of
@@ -60,24 +63,38 @@ def stft(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
     return _stft_forward(x, cfg)
 
 
+def uses_fft(n_fft: int) -> bool:
+    """Whether kernel B takes its FFT body (a power of two up to 8192, as
+    `addv_stft_fft` accepts) rather than its direct-DFT body."""
+    return 2 <= n_fft <= 8192 and n_fft & (n_fft - 1) == 0
+
+
 def _stft_forward(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return stft_plain(x, cfg)
     _cuda.require_cuda("stft", x)
-    xp = pad_signal(x, cfg).contiguous()
-    b, padded_len = xp.shape
     n_fft, hop = cfg.n_fft, cfg.hop_length
-    if padded_len < n_fft:
+    # the kernel folds a reflect pad into its read; any other pad is made here
+    # (and F.pad's reflect mode raises on a signal no longer than the pad)
+    pad = n_fft // 2 if cfg.center and cfg.pad_mode == "reflect" and x.shape[-1] > n_fft // 2 else 0
+    xs = (x if pad else pad_signal(x, cfg)).contiguous()
+    b, sig_len = xs.shape
+    if sig_len + 2 * pad < n_fft:
         raise ValueError(f"stft: signal of {x.shape[-1]} samples is shorter than a frame")
-    t = 1 + (padded_len - n_fft) // hop
+    t = 1 + (sig_len + 2 * pad - n_fft) // hop
     win = device_constant("window", x.device, cfg.window, cfg.win_length, n_fft)
-    bases = device_constant("dft", x.device, n_fft)
     re = torch.empty((b, cfg.num_bins, t), dtype=torch.float32, device=x.device)
     im = torch.empty_like(re)
-    err = _cuda.library().addv_stft(
-        xp.data_ptr(), win.data_ptr(), bases[0].data_ptr(), bases[1].data_ptr(),
-        re.data_ptr(), im.data_ptr(), b, padded_len, t, n_fft, hop, _cuda.stream_handle(x),
-    )
+    lib, stream = _cuda.library(), _cuda.stream_handle(x)
+    if uses_fft(n_fft):
+        tw = device_constant("twiddle", x.device, n_fft)
+        err = lib.addv_stft_fft(xs.data_ptr(), win.data_ptr(), tw.data_ptr(), re.data_ptr(),
+                                im.data_ptr(), b, sig_len, pad, t, n_fft, hop, stream)
+    else:
+        bases = device_constant("dft", x.device, n_fft)
+        err = lib.addv_stft(xs.data_ptr(), win.data_ptr(), bases[0].data_ptr(),
+                            bases[1].data_ptr(), re.data_ptr(), im.data_ptr(), b, sig_len, pad,
+                            t, n_fft, hop, stream)
     _cuda.check(err, "stft")
     _cuda.LAUNCHES["stft"] += 1
     return re, im

@@ -32,6 +32,14 @@ def _dft_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
+def _fft_twiddles(n_fft: int) -> np.ndarray:
+    """Twiddle table of kernel B's FFT body, [n_fft, 2]: (Re, Im) of
+    e^{-2 pi i m / n_fft} for m = 0 .. n_fft - 1, made in float64."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def _idft_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     """Inverse bases [n_fft//2+1, n_fft] using the hermitian symmetry of a
     real signal's DFT: x = Re @ A + Im @ B."""
@@ -71,6 +79,8 @@ def device_constant(name: str, device: torch.device, *key) -> torch.Tensor:
         arr = torch_style_window(*key)
     elif name == "dft":
         arr = np.stack(_dft_bases(*key))  # [2, n_fft, bins]
+    elif name == "twiddle":
+        arr = _fft_twiddles(*key)  # [n_fft, 2]
     elif name == "idft":
         arr = np.stack(_idft_bases(*key))  # [2, bins, n_fft]
     elif name == "envelope":
