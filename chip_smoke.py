@@ -9,17 +9,19 @@ PyTorch built for CUDA. It
  1. prints the card's name and power limit (nvidia-smi);
  2. builds the hand-written kernels from `xai_audio_deepfakes_tpu_torch/csrc`
     and prints the build seconds and ptxas' register / shared-memory report,
-    and counts the HMMA (tensor-core) instructions of the bf16 attention
-    body in the library's SASS (`cuobjdump -sass`), which must not be 0;
+    and counts the tensor-core instructions (HMMA / HGMMA) of the bf16
+    bodies of attention and conv+LN+GELU in the library's SASS
+    (`cuobjdump -sass`), neither of which may be 0;
  3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
     E conv+LayerNorm+GELU) against its plain PyTorch version at the main
     path's shapes (8 clips, embedder batch 24), in f32 and in the working
     dtype, each beside its tolerance, and times the kernel, the plain version
     and one PyTorch library call that computes the same function (timed
-    only; the port never calls it) by CUDA events; for A, B and C also the
+    only; the port never calls it) by CUDA events; for every kernel also the
     device time per call of the kernel and of the library call from a
-    torch.profiler trace (`kernel_device_ms`, `library_device_ms`), which
-    leave out the host's per-call overhead;
+    torch.profiler trace (`kernel_device_ms`, `library_device_ms`; D and E
+    summed over their shapes, E's with the wrapper's weight-image copy),
+    which leave out the host's per-call overhead;
  4. holds the backward of A, C, D and E (forward through the kernel, backward
     by recomputation) against autograd through the plain version, at the
     training step's shapes (2 clips);
@@ -129,15 +131,17 @@ def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 
 def fft_frame_ops(n_fft: int) -> float:
     """Operations one windowed frame needs through a real-input FFT: half of a
-    complex radix-2 FFT's 5 N log2 N, plus the window product. The kernels
-    compute a direct DFT (4 N (N/2+1) per frame), but the bound counts the
-    least work the function needs."""
+    complex radix-2 FFT's 5 N log2 N, plus the window product. Kernels B and
+    C compute a radix-8 FFT of the half-length complex frame (and C
+    transforms ~1.4x the frames, the spans' overlap), but the bound counts
+    the least work the function needs."""
     return 2.5 * n_fft * math.log2(n_fft) + n_fft
 
 
 def check_sass(lib_path: Path) -> None:
-    """Count the tensor-core instructions (HMMA) of the bf16 attention body
-    in the built library's SASS; fails if there are none."""
+    """Count the tensor-core instructions (HMMA, or HGMMA for wgmma) of the
+    bf16 bodies of attention (A) and conv+LN+GELU (E) in the built library's
+    SASS; fails if either has none."""
     import shutil
 
     tool = Path("/usr/local/cuda/bin/cuobjdump")
@@ -150,11 +154,12 @@ def check_sass(lib_path: Path) -> None:
     counts = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split(maxsplit=1)[0]
-        if "attention" in name:
-            counts[name] = section.count("HMMA")
-    print(f"HMMA instructions per attention kernel (SASS): {counts}")
-    if not any(n > 0 for name, n in counts.items() if "bf16" in name):
-        fail("the bf16 attention body has no HMMA instruction")
+        if "attention" in name or "conv_ln_gelu" in name:
+            counts[name] = section.count("HMMA") + section.count("HGMMA")
+    print(f"tensor-core instructions per attention / conv kernel (SASS): {counts}")
+    for kernel in ("attention", "conv_ln_gelu"):
+        if not any(n > 0 for name, n in counts.items() if kernel in name and "bf16" in name):
+            fail(f"the bf16 {kernel} body has no tensor-core instruction")
 
 
 def check_attention(torch, cfg, rows: list) -> None:
@@ -198,8 +203,9 @@ def check_attention(torch, cfg, rows: list) -> None:
                      kernel_device_ms=kernel_device_ms(lambda: attention(q, k, v, nh),
                                                        "attention_bf16_kernel"),
                      library_device_ms=kernel_device_ms(lambda: sdpa(qh, kh, vh, scale=1.0)),
-                     dtype="bfloat16", body="bf16: mma.sync m16n8k16 from ldmatrix, two passes "
-                     "over K, cp.async K/V ring; f32: CUDA-core FMAs, score tile in shared memory"))
+                     dtype="bfloat16", body="bf16: mma.sync m16n8k16 from ldmatrix, cp.async K/V "
+                     "ring, score row resident in registers for T <= 256 (two passes over K "
+                     "beyond); f32: CUDA-core FMAs, score tile in shared memory"))
 
 
 def check_stft(torch, cfg, rows: list) -> None:
@@ -243,6 +249,11 @@ def check_stft(torch, cfg, rows: list) -> None:
     y = istft(re_m, im_m, sc, n)
     torch.cuda.synchronize()
     err = check_close("C istft", y, istft_plain(re_m, im_m, sc, n), 2e-4)
+    # randn spectra, as a gradient's: Im[0] and Im[M] non-zero, which the
+    # plain version's bases ignore
+    re_r, im_r = (torch.randn(re.shape, device="cuda", generator=g) for _ in range(2))
+    err = max(err, check_close("C istft, randn spectra", istft(re_r, im_r, sc, n),
+                               istft_plain(re_r, im_r, sc, n), 2e-4))
     spec = torch.complex(re_m, im_m)
     def istft_lib():
         return torch.istft(spec, sc.n_fft, sc.hop_length, sc.n_fft, win, center=True, length=n)
@@ -258,9 +269,11 @@ def check_stft(torch, cfg, rows: list) -> None:
                      bound_ms=bnd, bound_by=by, library_ms=lib,
                      shape=[BATCH, sc.num_bins, t], dtype="float32",
                      kernel_device_ms=kernel_device_ms(lambda: istft(re_m, im_m, sc, n),
-                                                       "istft_kernel"),
+                                                       "istft_fft_kernel"),
                      library_device_ms=kernel_device_ms(istft_lib),
-                     body="direct inverse DFT against L2-resident bases, gather overlap-add"))
+                     body="inverse real FFT (half-length pack, radix-8 Stockham core shared "
+                     "with B) of the frames touching each 8-hop span, windowed overlap-add "
+                     "gathered in shared memory, envelope, trim, crop"))
 
 
 def frontend_lengths(cfg) -> list[int]:
@@ -282,7 +295,7 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
     scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)
     bias = 0.1 * torch.randn(c, device="cuda", generator=g)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    ms = plain = lib = 0.0
+    ms = plain = lib = dev = lib_dev = 0.0
     for length in frontend_lengths(cfg):
         x32 = torch.randn(b, c, length, device="cuda", generator=g) * 2.0 + 0.5
         for dt, atol, rtol in ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
@@ -296,10 +309,14 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
         del x32
         work = x.clone()
         ms += time_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu))
+        dev += kernel_device_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu), "ln_gelu", 5)
         plain += time_ms(lambda: ln_gelu_plain(x, scale, bias, eps, e.gelu))
         xt = x.transpose(1, 2).contiguous()
-        lib += time_ms(lambda: F.gelu(F.layer_norm(xt, (c,), scale.to(xt.dtype),
-                                                   bias.to(xt.dtype), eps)))
+        def ln_gelu_lib():
+            return F.gelu(F.layer_norm(xt, (c,), scale.to(xt.dtype), bias.to(xt.dtype), eps))
+
+        lib += time_ms(ln_gelu_lib)
+        lib_dev += kernel_device_ms(ln_gelu_lib, iters=5)
         del work, xt, x
     elems = b * c * sum(frontend_lengths(cfg))
     # ~16 operations per element (statistics, normalisation, GELU with erf as one)
@@ -309,8 +326,10 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
                      shape=[b, c, frontend_lengths(cfg)], dtype="bfloat16",
+                     kernel_device_ms=dev, library_device_ms=lib_dev,
                      body="one warp per 32 frames, statistics over the strided channel axis",
-                     note="ms, plain_ms, library_ms and bound_ms summed over the 7 frontend shapes"))
+                     note="ms, device ms, plain_ms, library_ms and bound_ms summed over the 7 "
+                     "frontend shapes"))
 
 
 def conv_inputs(torch, g, dtype, k: int, length: int, batch: int, c: int):
@@ -332,8 +351,8 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
     b, c, eps = 3 * BATCH, e.conv_dim[0], e.layer_norm_eps
     g = torch.Generator(device="cuda").manual_seed(4)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    ms = plain = lib = ops = nbytes = 0.0
-    by_layer = []
+    ms = plain = lib = ops = nbytes = dev = lib_dev = 0.0
+    by_layer, dev_by_layer, l2_weight_gb = [], [], []
     worst_share = 0.0
     lengths = frontend_lengths(cfg)
     # f32: sums of k * 512 products in another order than cuDNN's, on values
@@ -367,14 +386,28 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
         by_layer.append(time_ms(lambda: conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu),
                                 iters=5, warmup=1))
         ms += by_layer[-1]
+        # every kernel of the call, the wrapper's weight-image copy with E, as
+        # the library's device time counts every kernel of its call
+        dev_by_layer.append(kernel_device_ms(
+            lambda: conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu), iters=5))
+        dev += dev_by_layer[-1]
         plain += time_ms(lambda: conv_ln_gelu_plain(x, w, cb, scale, bias, eps, e.gelu),
                          iters=5, warmup=1)
         sc, bi = scale.to(x.dtype), bias.to(x.dtype)
-        lib += time_ms(lambda: F.gelu(F.layer_norm(
-            F.conv1d(x, w, cb, stride=2).transpose(1, 2), (c,), sc, bi, eps)), iters=5, warmup=1)
+        def conv_lib():
+            return F.gelu(F.layer_norm(F.conv1d(x, w, cb, stride=2).transpose(1, 2), (c,), sc, bi,
+                                       eps))
+
+        lib += time_ms(conv_lib, iters=5, warmup=1)
+        lib_dev += kernel_device_ms(conv_lib, iters=5)
+        # design arithmetic, not a measurement: every block of 64 frames reads
+        # all k * c * c bf16 weights from L2
+        l2_weight_gb.append(b * math.ceil(l_out / 64) * k * c * c * 2 / 1e9)
         ops += 2.0 * b * l_out * c * c * k
         nbytes += 2.0 * (b * c * (l_in + l_out) + c * c * k) + 4.0 * 3 * c
         del x, w
+    print("  E L2 weight GB by layer, derived from the 64-frame tiling (not measured): "
+          + json.dumps([round(gb, 3) for gb in l2_weight_gb]))
     bnd, by = bound_ms(nbytes, ops, "bfloat16")
     rows.append(dict(name="conv_ln_gelu", route="cuda",
                      source="xai_audio_deepfakes_tpu_torch/csrc/conv_ln_gelu.cu",
@@ -382,9 +415,15 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
                      shape=[b, c, lengths[:-1]], dtype="bfloat16", gflop=ops / 1e9, ms_by_layer=by_layer,
-                     body="bf16: WMMA 16x16x16 on transposed samples; f32: CUDA-core FMAs",
+                     kernel_device_ms=dev, library_device_ms=lib_dev,
+                     device_ms_by_layer=dev_by_layer,
+                     body="bf16: wgmma m64n256k16 with both operands in shared memory, 64 "
+                     "frames x 512 channels a block, a producer warpgroup fills a 3-5 stage "
+                     "ring (weights by bulk copy, even/odd im2col planes from cp.async rows) on "
+                     "mbarriers, LayerNorm from the registers; f32: CUDA-core FMAs",
                      share_over_one_bf16_step=worst_share,
-                     note="ms, plain_ms, library_ms and bound_ms summed over frontend layers 1-6"))
+                     note="ms, device ms, plain_ms, library_ms and bound_ms summed over "
+                     "frontend layers 1-6"))
 
 
 def check_backwards(torch, cfg) -> None:

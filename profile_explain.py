@@ -2,7 +2,7 @@
 """Where the time of one `explain(decoder="unet")` of the PyTorch/CUDA port
 goes, on the card. A development profiler, run from the root of a checkout:
 
-    python3 profile_explain.py [--batch 8] [--out FILE] [--cudnn-benchmark]
+    python3 profile_explain.py [--batch 8] [--out FILE] [--cudnn-benchmark] [--fused-conv]
     python3 profile_explain.py --train [--batch 2] [--out FILE]
 
 Builds the full-width pipeline of `chip_smoke.py` (bf16 XLS-R-2B truncation,
@@ -149,6 +149,9 @@ def main(argv=None) -> int:
                     help="clips per explain (default 8) or per training step "
                          "(default TrainConfig.batch_size)")
     ap.add_argument("--train", action="store_true", help="profile training steps instead")
+    ap.add_argument("--fused-conv", action="store_true",
+                    help="explain with EmbedderConfig(fused_conv=True): kernel E for frontend "
+                         "layers 1-6")
     ap.add_argument("--out", default=None)
     # an open question of PERF.md: whether the pipeline should set it
     ap.add_argument("--cudnn-benchmark", action="store_true",
@@ -166,7 +169,8 @@ def main(argv=None) -> int:
     from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
     from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 
-    cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True))
+    cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True,
+                                                 fused_conv=args.fused_conv))
     pipe = ADDvisorPipeline(cfg, device="cuda", seed=0)
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     b = 8 if args.batch is None else args.batch
@@ -202,7 +206,7 @@ def main(argv=None) -> int:
             "predict_mask (UNet, f32)": _event_ms(torch, lambda: pipe.predict_mask(mag), r),
             "masking + 2 iSTFT (kernel C)": _event_ms(torch, masked_istfts, r),
             "embedder: normalise": _event_ms(torch, lambda: zero_mean_unit_var_norm(wav3), r),
-            "embedder: conv frontend (kernel D)": _event_ms(
+            "embedder: conv frontend (kernel D, or D and E with fused_conv)": _event_ms(
                 torch, lambda: enc.feature_encoder(norm), r),
             "embedder: projection + pos conv": _event_ms(
                 torch, lambda: proj + enc.pos_conv(enc.feature_projection(fe)), r),
@@ -223,6 +227,7 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0),
         "batch": b,
         "cudnn_benchmark": args.cudnn_benchmark,
+        "fused_conv": args.fused_conv,
         "stage_ms": stages,
         **trace,
     }

@@ -129,6 +129,45 @@ def test_stft_kernels_match_plain(rng, cuda):
             y, stft.istft_plain(re_p * mask, im_p * mask, CFG, length), atol=2e-4, rtol=0)
 
 
+ISTFT_512 = STFTConfig(n_fft=512, hop_length=128, win_length=400, window="hann")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("length", [8000, 80000, 80001])
+@pytest.mark.parametrize("cfg", [CFG, ISTFT_512], ids=["fft_1024", "fft_512_hann"])
+def test_istft_fft_body_matches_plain(rng, cuda, batch, length, cfg):
+    """Kernel C's FFT body, one launch, against the matmul inverse DFT of
+    `istft_plain` (2e-4) on randn spectra, whose Im[0] and Im[M] are
+    non-zero (the plain version's bases ignore them)."""
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft_uses_fft
+
+    assert istft_uses_fft(cfg.n_fft, cfg.hop_length)
+    t = 1 + length // cfg.hop_length
+    re, im = (torch.from_numpy(rng.standard_normal((batch, cfg.num_bins, t)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    before = _cuda.LAUNCHES["istft"]
+    y = t_istft(re, im, cfg, length)
+    assert _cuda.LAUNCHES["istft"] == before + 1
+    assert y.shape == (batch, length)
+    torch.testing.assert_close(y, stft.istft_plain(re, im, cfg, length), atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_istft_dft_body_matches_plain(rng, cuda):
+    """n_fft 640 keeps kernel C's direct-DFT body."""
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft_uses_fft
+
+    cfg = STFTConfig(n_fft=640, win_length=640)
+    assert not istft_uses_fft(cfg.n_fft, cfg.hop_length)
+    re, im = (torch.from_numpy(rng.standard_normal((2, cfg.num_bins, 50)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    length = 49 * cfg.hop_length
+    torch.testing.assert_close(t_istft(re, im, cfg, length),
+                               stft.istft_plain(re, im, cfg, length), atol=2e-4, rtol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)])
 @pytest.mark.parametrize("kind", ["exact", "tanh"])
@@ -165,6 +204,24 @@ def test_conv_ln_gelu_kernel_matches_plain(rng, cuda, dtype, atol, rtol, k, leng
     got = conv_ln_gelu(x, w, cb, g, lb, 1e-5, kind)
     want = conv_ln_gelu_plain(x, w, cb, g, lb, 1e-5, kind)
     assert got.shape == want.shape == (2, c, (length - k) // 2 + 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    off = (got.float() - want.float()).abs() > 1e-2 + 1e-2 * want.float().abs()
+    assert float(off.float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 3.2e-2)])
+@pytest.mark.parametrize("batch", [2, 24])
+@pytest.mark.parametrize("k,length", [(3, 15999), (3, 7999), (3, 3999), (3, 1999), (2, 999), (2, 499)])
+def test_conv_ln_gelu_kernel_frontend_shapes(rng, cuda, dtype, atol, rtol, batch, k, length):
+    """Kernel E at the six frontend layers' shapes (inputs 15999 .. 499
+    frames, outputs 7999 .. 249, ragged last 64-frame tiles), at the
+    training step's batch and the explain's, against its plain version at
+    the bar of `test_conv_ln_gelu_kernel_matches_plain`."""
+    x, w, cb, g, lb = _conv_inputs(rng, cuda, dtype, k, length, batch=batch)
+    got = conv_ln_gelu(x, w, cb, g, lb, 1e-5, "exact")
+    want = conv_ln_gelu_plain(x, w, cb, g, lb, 1e-5, "exact")
+    assert got.shape == want.shape == (batch, 512, (length - k) // 2 + 1)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     off = (got.float() - want.float()).abs() > 1e-2 + 1e-2 * want.float().abs()
     assert float(off.float().mean()) <= 1e-3

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "addv_stft": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                   _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
     "addv_stft_fft": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
+    "addv_istft_fft": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+                       _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
     "addv_istft": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                    _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
     "addv_ln_gelu": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, ctypes.c_float,

@@ -5,8 +5,11 @@ of `ops/pallas_conv.py`).
 The activation is [B, C, L] on both sides, so layer 0 (conv + kernel D) feeds
 it and the feature projection reads it without a transpose. The weight is
 torch's Conv1d layout [Cout, Cin, k]. The kernel is `csrc/conv_ln_gelu.cu`:
-bf16 products run on the tensor cores with f32 accumulation, f32 products as
-full-f32 FMAs on the CUDA cores (never TF32).
+bf16 products run on the tensor cores (wgmma) with f32 accumulation, fed by a
+ring of weight and im2col sample tiles, f32 products as full-f32 FMAs on the
+CUDA cores (never TF32). The wrapper hands the bf16 body its weights as the
+image of its shared-memory stages (`weight_image`), so that each stage's
+weights are one contiguous bulk copy in wgmma's operand layout.
 
 Order of operations (the Pallas kernel body's, which decides the bf16
 result): the f32 conv sum is rounded to the compute dtype, the conv bias is
@@ -28,13 +31,29 @@ from xai_audio_deepfakes_tpu_torch.ops._autograd import needs_grad, recompute_vj
 from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu_from_f32
 
 STRIDE = 2
+BF16_COUTS = (128, 256, 512)  # the Couts the bf16 body is instantiated for
 
 
 def supports_fused_conv(kernel: int, stride: int, cin: int, cout: int) -> bool:
     """The kernel covers the six 512 -> 512 stride-2 layers of XLS-R's conv
     stack (k 3 four times, k 2 twice). Layer 0 (Cin = 1, k 10, stride 5)
-    stays conv + kernel D."""
-    return stride == STRIDE and kernel in (2, 3) and cin % 128 == 0 and cout % 128 == 0
+    stays conv + kernel D. The bf16 body is instantiated for Cout 128, 256
+    and 512 (wgmma's N is Cout / 2), so other Couts take conv + kernel D."""
+    return stride == STRIDE and kernel in (2, 3) and cin % 128 == 0 and cout in BF16_COUTS
+
+
+CHUNK = 16  # input channels per stage of the bf16 body
+
+
+def weight_image(weight: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin, k] -> the bf16 body's stage image [Cin / 16, k, Cout / 8, 2,
+    8, 8]: chunk c, tap, then wgmma's K-major core matrices of 8 output x 8
+    input channels (128 contiguous bytes), the two 8-channel halves of input
+    channels 16 c .. 16 c + 15 side by side. Element [c, tap, cb, h, r, j]
+    is weight[8 cb + r, 16 c + 8 h + j, tap]."""
+    cout, cin, k = weight.shape
+    w = weight.detach().reshape(cout // 8, 8, cin // CHUNK, 2, 8, k)
+    return w.permute(2, 5, 0, 3, 1, 4).contiguous()
 
 
 def conv_ln_gelu_plain(x, weight, conv_bias, scale, bias, eps: float, gelu: str) -> torch.Tensor:
@@ -66,8 +85,12 @@ def _forward(x, weight, conv_bias, scale, bias, eps: float, gelu: str) -> torch.
     for name, t in (("conv_bias", conv_bias), ("scale", scale), ("bias", bias)):
         if t.shape != (cout,):
             raise ValueError(f"conv_ln_gelu: {name} {tuple(t.shape)}, Cout {cout}")
-    # [k, Cin, Cout]: a staged weight row is contiguous over the output channels
-    w_t = weight.detach().permute(2, 1, 0).contiguous()
+    if x.dtype == torch.bfloat16:
+        if x.data_ptr() % 16:  # the bf16 body copies x in 16-byte pieces
+            x = x.clone()
+        w_t = weight_image(weight)
+    else:  # [k, Cin, Cout]: a staged weight row is contiguous over the output channels
+        w_t = weight.detach().permute(2, 1, 0).contiguous()
     cb = conv_bias.detach().float()
     out = torch.empty((b, cout, (length - k) // STRIDE + 1), dtype=x.dtype, device=x.device)
     err = lib.addv_conv_ln_gelu(

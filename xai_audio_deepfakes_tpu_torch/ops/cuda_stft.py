@@ -2,10 +2,12 @@
 of `ops/pallas_stft.py`).
 
 CPU tensors take the plain versions in `ops/stft.py`; CUDA tensors launch
-`csrc/stft.cu` and `csrc/istft.cu`. Both kernels work in f32. Kernel B is a
-shared-memory FFT for a power-of-two n_fft (every configuration of the repo)
-and a direct DFT otherwise (`uses_fft`); either way it reads the signal
-itself, the reflect pad folded into the read.
+`csrc/stft.cu` and `csrc/istft.cu`. Both kernels work in f32 and share one
+shared-memory FFT core (`csrc/fft.cuh`) for a power-of-two n_fft (every
+configuration of the repo), with a direct DFT otherwise (`uses_fft`,
+`istft_uses_fft`). Kernel B reads the signal itself, the reflect pad folded
+into the read; kernel C inverse-transforms the frames that touch each
+block's span of output samples and overlap-adds them in shared memory.
 
 Both transforms are linear, so their gradients (`_Stft`, `_Istft`) are the
 vjps of the plain versions and need no saved input, as the `bwd`s of
@@ -69,6 +71,12 @@ def uses_fft(n_fft: int) -> bool:
     return 2 <= n_fft <= 8192 and n_fft & (n_fft - 1) == 0
 
 
+def istft_uses_fft(n_fft: int, hop: int) -> bool:
+    """Whether kernel C takes its FFT body (as `addv_istft_fft` accepts: the
+    FFT's n_fft, frames that overlap or meet) rather than its direct DFT."""
+    return uses_fft(n_fft) and hop <= n_fft
+
+
 def _stft_forward(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return stft_plain(x, cfg)
@@ -126,15 +134,20 @@ def _istft_forward(real: torch.Tensor, imag: torch.Tensor, cfg: STFTConfig,
     n_fft, hop = cfg.n_fft, cfg.hop_length
     if imag.shape != real.shape or f != cfg.num_bins:
         raise ValueError(f"istft: re {tuple(real.shape)}, im {tuple(imag.shape)}")
-    bases = device_constant("idft", real.device, n_fft)
     win = device_constant("window", real.device, cfg.window, cfg.win_length, n_fft)
     env = device_constant("envelope", real.device, t, n_fft, hop, cfg.window, cfg.win_length)
     y = torch.empty((b, length), dtype=torch.float32, device=real.device)
-    err = _cuda.library().addv_istft(
-        real.data_ptr(), imag.data_ptr(), bases[0].data_ptr(), bases[1].data_ptr(),
-        win.data_ptr(), env.data_ptr(), y.data_ptr(), b, t, n_fft, hop, int(cfg.center),
-        length, _cuda.stream_handle(real),
-    )
+    lib, stream = _cuda.library(), _cuda.stream_handle(real)
+    if istft_uses_fft(n_fft, hop):
+        tw = device_constant("twiddle", real.device, n_fft)
+        err = lib.addv_istft_fft(real.data_ptr(), imag.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                                 env.data_ptr(), y.data_ptr(), b, t, n_fft, hop,
+                                 int(cfg.center), length, stream)
+    else:
+        bases = device_constant("idft", real.device, n_fft)
+        err = lib.addv_istft(real.data_ptr(), imag.data_ptr(), bases[0].data_ptr(),
+                             bases[1].data_ptr(), win.data_ptr(), env.data_ptr(), y.data_ptr(),
+                             b, t, n_fft, hop, int(cfg.center), length, stream)
     _cuda.check(err, "istft")
     _cuda.LAUNCHES["istft"] += 1
     return y
