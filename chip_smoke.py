@@ -21,7 +21,13 @@ PyTorch built for CUDA. It
     device time per call of the kernel and of the library call from a
     torch.profiler trace (`kernel_device_ms`, `library_device_ms`; D and E
     summed over their shapes, E's with the wrapper's weight-image copy),
-    which leave out the host's per-call overhead;
+    which leave out the host's per-call overhead (a call whose traces show
+    no kernel three times over is timed by CUDA events instead and named on
+    a line before the `kernels` line); D is held at each of the
+    seven frontend shapes in both dtypes and both GELU forms, with its bf16
+    elements off by any step and by more than one step (at most 0.1%), and
+    timed layer by layer (ms, device ms, GB/s against 3.35 TB/s, beside the
+    library's), with ptxas' registers and spills of its instantiations;
  4. holds the backward of A, C, D and E (forward through the kernel, backward
     by recomputation) against autograd through the plain version, at the
     training step's shapes (2 clips);
@@ -88,23 +94,33 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, match: str = "", iters: int = 20) -> float | None:
+# device times that no profiler trace gave and CUDA events took instead
+EVENT_TIMED: list = []
+
+
+def kernel_device_ms(fn, match: str = "", iters: int = 20, tries: int = 3) -> float:
     """Device time of one call of fn() in the kernels whose names hold
     `match` (all kernels with the default), from a torch.profiler trace of
     `iters` calls: device time alone, without the host's per-call overhead
-    that CUDA events around a small call take in. None if the trace shows no
-    such kernel."""
+    that CUDA events around a small call take in. Now and then a trace holds
+    no device activity at all; it is taken again, up to `tries` times, and
+    then the call is timed by CUDA events and named in EVENT_TIMED."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = {(ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
-             if str(ev.device_type).endswith("CUDA") and match in ev.name}
-    return sum(end - start for _, start, end in spans) / 1e3 / iters if spans else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = {(ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                 if str(ev.device_type).endswith("CUDA") and match in ev.name}
+        if spans:
+            return sum(end - start for _, start, end in spans) / 1e3 / iters
+    EVENT_TIMED.append(f"{fn.__qualname__} {match}".strip())
+    print(f"  no trace of {tries} showed a kernel of {EVENT_TIMED[-1]}: timed by CUDA events")
+    return time_ms(fn, iters=iters, warmup=0)
 
 
 def check_close(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
@@ -284,9 +300,40 @@ def frontend_lengths(cfg) -> list[int]:
     return lengths
 
 
+def bf16_steps(torch, got, want):
+    """|got - want| in units of one bf16 step (2^-7 of want's power of two)."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want)
+    return (got - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)
+
+
+def ptxas_entries(report: str, source: str, match: str) -> list[dict]:
+    """Registers and spill bytes of the entry functions of `source` whose
+    mangled names hold `match`, from the build's ptxas report."""
+    import re
+
+    section = report.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0] if report else ""
+    out, entry = [], None
+    for line in section.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = dict(entry=m.group(1)) if match in m.group(1) else None
+            if entry:
+                out.append(entry)
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+    return out
+
+
 def check_ln_gelu(torch, cfg, rows: list) -> None:
     import torch.nn.functional as F
 
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
     from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu_, ln_gelu_plain
 
     e = cfg.embedder
@@ -295,41 +342,74 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
     scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)
     bias = 0.1 * torch.randn(c, device="cuda", generator=g)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    ms = plain = lib = dev = lib_dev = 0.0
+    worst_share = flip_share = 0.0
+    plain = lib = lib_dev = 0.0
+    by_layer, dev_by_layer, gbs_by_layer, lib_dev_by_layer = [], [], [], []
     for length in frontend_lengths(cfg):
         x32 = torch.randn(b, c, length, device="cuda", generator=g) * 2.0 + 0.5
         for dt, atol, rtol in ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
             x = x32.to(dt)
-            out = ln_gelu_(x.clone(), scale, bias, eps, e.gelu)
-            torch.cuda.synchronize()
-            errs[dt] = max(errs[dt], check_close(
-                f"D ln_gelu {dt} L={length}", out, ln_gelu_plain(x, scale, bias, eps, e.gelu),
-                atol, rtol))
+            for form in ("exact", "tanh"):
+                out = ln_gelu_(x.clone(), scale, bias, eps, form)
+                torch.cuda.synchronize()
+                want = ln_gelu_plain(x, scale, bias, eps, form)
+                errs[dt] = max(errs[dt], check_close(
+                    f"D ln_gelu {dt} {form} L={length}", out, want, atol, rtol))
+                if dt == torch.bfloat16:
+                    steps = bf16_steps(torch, out, want)
+                    share = float((steps > 1).float().mean())
+                    worst_share = max(worst_share, share)
+                    flip_share = max(flip_share, float((steps > 0).float().mean()))
+                    if share > 1e-3:
+                        fail(f"D ln_gelu: {share:.2e} of the elements are more than one bf16 step off")
+                del out, want
         x = x32.to(torch.bfloat16)
         del x32
         work = x.clone()
-        ms += time_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu))
-        dev += kernel_device_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu), "ln_gelu", 5)
-        plain += time_ms(lambda: ln_gelu_plain(x, scale, bias, eps, e.gelu))
+        by_layer.append(time_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu), iters=5))
+        dev_by_layer.append(kernel_device_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu),
+                                             "ln_gelu", 5))
+        gbs_by_layer.append(2 * 2 * b * c * length / (dev_by_layer[-1] * 1e-3) / 1e9)
+        plain += time_ms(lambda: ln_gelu_plain(x, scale, bias, eps, e.gelu), iters=5)
         xt = x.transpose(1, 2).contiguous()
         def ln_gelu_lib():
             return F.gelu(F.layer_norm(xt, (c,), scale.to(xt.dtype), bias.to(xt.dtype), eps))
 
-        lib += time_ms(ln_gelu_lib)
-        lib_dev += kernel_device_ms(ln_gelu_lib, iters=5)
+        lib += time_ms(ln_gelu_lib, iters=5)
+        lib_dev_by_layer.append(kernel_device_ms(ln_gelu_lib, iters=5))
+        lib_dev += lib_dev_by_layer[-1]
         del work, xt, x
     elems = b * c * sum(frontend_lengths(cfg))
+    ms, dev = sum(by_layer), sum(dev_by_layer)
     # ~16 operations per element (statistics, normalisation, GELU with erf as one)
     bnd, by = bound_ms(2 * 2 * elems, 16 * elems, "float32")
+    regs = ptxas_entries(_cuda.build_log.get("ptxas", ""), "ln_gelu.cu", "ln_gelu_kernel")
+    print(f"  D by layer: ms {[round(v, 4) for v in by_layer]}, device ms "
+          f"{[round(v, 4) for v in dev_by_layer]}, GB/s {[round(v) for v in gbs_by_layer]} "
+          f"(peak {HBM_BYTES_PER_S / 1e9:.0f}), library device ms "
+          f"{[round(v, 4) for v in lib_dev_by_layer]}; bf16 elements off by any step "
+          f"{flip_share:.2e}, by more than one {worst_share:.2e}")
     rows.append(dict(name="ln_gelu", route="cuda", source="xai_audio_deepfakes_tpu_torch/csrc/ln_gelu.cu",
                      replaces="xai_audio_deepfakes_tpu/ops/pallas_ln_gelu.py:113",
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
                      shape=[b, c, frontend_lengths(cfg)], dtype="bfloat16",
                      kernel_device_ms=dev, library_device_ms=lib_dev,
-                     body="one warp per 32 frames, statistics over the strided channel axis",
+                     ms_by_layer=by_layer, device_ms_by_layer=dev_by_layer,
+                     library_device_ms_by_layer=lib_dev_by_layer,
+                     gb_per_s_by_layer=gbs_by_layer,
+                     gb_per_s=2 * 2 * elems / (dev * 1e-3) / 1e9,
+                     share_over_one_bf16_step=worst_share, share_off_by_any_bf16_step=flip_share,
+                     ptxas=regs,
+                     body="tiles of all C channels x 64 frames (bf16; 32 for f32), each channel "
+                     "row in a shared-memory ring of 16-byte chunks filled by cp.async, read at "
+                     "the row's own shift; a block walks a run of consecutive tiles, so a chunk "
+                     "two tiles share is copied once and stored once, whole; thread = frame, "
+                     "every 8th channel in registers, statistics in the plain version's "
+                     "summation order; 16-byte stores but at the ends of a run; persistent "
+                     "grid, next tile's copies in flight; GELU form a template constant",
                      note="ms, device ms, plain_ms, library_ms and bound_ms summed over the 7 "
-                     "frontend shapes"))
+                     "frontend shapes; errors over both GELU forms"))
 
 
 def conv_inputs(torch, g, dtype, k: int, length: int, batch: int, c: int):
@@ -735,6 +815,9 @@ def main() -> int:
             if row[key] is not None and row[key] < row["bound_ms"]:
                 print(f"note: {row['name']} {key} {row[key]:.4f} is below bound_ms "
                       f"{row['bound_ms']:.4f} (inputs warm in L2)")
+    if EVENT_TIMED:
+        print("device times by CUDA events (no profiler trace showed the kernel): "
+              + json.dumps(EVENT_TIMED))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

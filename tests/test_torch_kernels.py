@@ -181,6 +181,98 @@ def test_ln_gelu_kernel_matches_plain(rng, cuda, dtype, atol, rtol, kind):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+FRONTEND_LENGTHS = [15999, 7999, 3999, 1999, 999, 499, 249]
+LN_GELU_BARS = [(torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)]
+
+
+def _ln_gelu_inputs(rng, device, dtype, b, c, length):
+    """x ~ 2 N(0, 1) + 0.5 (drawn on the device from a seed of `rng`, since
+    the frontend shapes hold up to 2e8 elements), scale ~ 1 + 0.1 N, bias ~
+    0.1 N."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(2**31)))
+    x = (torch.randn(b, c, length, device=device, generator=gen) * 2 + 0.5).to(dtype)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(device)
+    lb = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(device)
+    return x, g, lb
+
+
+def _bf16_steps(got, want):
+    """|got - want| in units of one bf16 step (2^-7 of want's power of two)."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want)
+    return (got - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)
+
+
+def _assert_ln_gelu_close(got, want, dtype, atol, rtol):
+    """The kernel's bar, and in bf16 at most 0.1% of the elements more than
+    one bf16 step off: the kernel's f32 sums run in another order than the
+    plain version's, so a normalised value now and then rounds to the
+    neighbouring bf16 value before the GELU."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16:
+        assert float((_bf16_steps(got, want) > 1).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", LN_GELU_BARS)
+@pytest.mark.parametrize("kind", ["exact", "tanh"])
+@pytest.mark.parametrize("batch", [2, 24])
+@pytest.mark.parametrize("length", FRONTEND_LENGTHS)
+def test_ln_gelu_kernel_frontend_shapes(rng, cuda, dtype, atol, rtol, kind, batch, length):
+    """Kernel D in place at the seven frontend layers' shapes (C = 512, odd
+    lengths, so every channel row starts at its own residue modulo 16 bytes),
+    at the training step's batch and the explain's embedder batch."""
+    x, g, lb = _ln_gelu_inputs(rng, cuda, dtype, batch, 512, length)
+    want = ln_gelu_plain(x, g, lb, 1e-5, kind)
+    got = ln_gelu_(x, g, lb, 1e-5, kind)
+    assert got.data_ptr() == x.data_ptr()
+    _assert_ln_gelu_close(got, want, dtype, atol, rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", LN_GELU_BARS)
+@pytest.mark.parametrize("c,length", [(8, 1), (8, 7), (8, 9), (8, 249), (8, 15999), (1, 33),
+                                      (100, 37), (511, 65), (512, 1), (512, 7)])
+def test_ln_gelu_kernel_small_c_and_ragged_l(rng, cuda, dtype, atol, rtol, c, length):
+    """Any C up to 512 (the tiny embedder's C = 8 among them) and lengths
+    shorter than one 32-frame tile, or with a ragged last tile; in place and
+    out of place."""
+    x, g, lb = _ln_gelu_inputs(rng, cuda, dtype, 3, c, length)
+    want = ln_gelu_plain(x, g, lb, 1e-5, "exact")
+    kept = x.clone()
+    out = ln_gelu(x, g.requires_grad_(), lb, 1e-5, "exact")  # out of place (a gradient is recorded)
+    assert out.data_ptr() != x.data_ptr() and torch.equal(x, kept)
+    _assert_ln_gelu_close(out.detach(), want, dtype, atol, rtol)
+    _assert_ln_gelu_close(ln_gelu_(x, g.detach(), lb, 1e-5, "exact"), want, dtype, atol, rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", LN_GELU_BARS)
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("in_place", [True, False], ids=["in_place", "out_of_place"])
+def test_ln_gelu_kernel_storage_offset(rng, cuda, dtype, atol, rtol, offset, in_place):
+    """A contiguous view with a storage offset, whose data pointer is not 16
+    bytes aligned: the kernel reads and writes at the pointer's own residue
+    (out of place, x's and the fresh output's residues differ), and in place
+    it leaves the buffer around the view untouched."""
+    b, c, length = 2, 512, 999
+    x0, g, lb = _ln_gelu_inputs(rng, cuda, dtype, b, c, length)
+    buf = torch.full((b * c * length + offset + 5,), 7.0, device=cuda, dtype=dtype)
+    x = buf[offset:offset + x0.numel()].view(b, c, length)
+    x.copy_(x0)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    want = ln_gelu_plain(x0, g, lb, 1e-5, "tanh")
+    if in_place:
+        got = ln_gelu_(x, g, lb, 1e-5, "tanh")
+        assert got.data_ptr() == x.data_ptr()
+        assert bool((buf[:offset] == 7).all()) and bool((buf[offset + x0.numel():] == 7).all())
+    else:
+        got = ln_gelu(x, g.requires_grad_(), lb, 1e-5, "tanh").detach()
+        assert torch.equal(x, x0)
+    _assert_ln_gelu_close(got, want, dtype, atol, rtol)
+
+
 def _conv_inputs(rng, device, dtype, k, length, batch=2, c=512):
     x = torch.from_numpy(rng.standard_normal((batch, c, length)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((c, c, k)).astype(np.float32) * (c * k) ** -0.5)

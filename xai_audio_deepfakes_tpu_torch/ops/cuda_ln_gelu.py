@@ -8,7 +8,9 @@ output to its input when the dtypes match. `ln_gelu` is what the embedder
 calls: in place when no gradient is recorded (serving keeps its memory), and
 out of place through `_LnGelu` when one is, because the backward recomputes
 from the input the in-place launch would have overwritten. The kernel is
-`csrc/ln_gelu.cu`.
+`csrc/ln_gelu.cu`; it takes any contiguous x, a view with a storage offset
+(a data pointer that is not 16-byte aligned) included, and writes at x's
+residue modulo 16 bytes: `_empty_at_residue` places a fresh output there.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def _launch(x: torch.Tensor, out: torch.Tensor, scale, bias, eps: float, gelu: s
         raise ValueError(f"ln_gelu: C={c}, scale {tuple(scale.shape)}, bias {tuple(bias.shape)}")
     if scale.device != x.device:
         raise ValueError("ln_gelu: scale and bias must be on x's device")
+    if out.data_ptr() % 16 != x.data_ptr() % 16:
+        raise ValueError("ln_gelu: out must have x's address modulo 16 bytes "
+                         "(the kernel reads and writes each row at one shift)")
     err = lib.addv_ln_gelu(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, length,
         float(eps), int(gelu == "tanh"), _cuda.DTYPE_CODES[x.dtype], _cuda.stream_handle(x),
@@ -57,6 +62,15 @@ def _launch(x: torch.Tensor, out: torch.Tensor, scale, bias, eps: float, gelu: s
     _cuda.check(err, "ln_gelu")
     _cuda.LAUNCHES["ln_gelu"] += 1
     return out
+
+
+def _empty_at_residue(x: torch.Tensor) -> torch.Tensor:
+    """A new contiguous tensor like x whose data pointer has x's residue
+    modulo 16 bytes (x may be a view with a storage offset)."""
+    off = x.data_ptr() % 16 // x.element_size()
+    if off == 0:
+        return torch.empty_like(x)
+    return torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)[off:].view(x.shape)
 
 
 def _check_gelu(gelu: str) -> None:
@@ -85,7 +99,7 @@ class _LnGelu(torch.autograd.Function):
         if x.device.type == "cpu":
             return ln_gelu_plain(x, scale, bias, eps, gelu)
         x = x.contiguous()
-        return _launch(x, torch.empty_like(x), scale, bias, eps, gelu)
+        return _launch(x, _empty_at_residue(x), scale, bias, eps, gelu)
 
     @staticmethod
     def backward(ctx, grad):
