@@ -47,10 +47,21 @@ PyTorch built for CUDA. It
     the CPU with the same weights and compares them (mask 1e-5, waveforms
     2e-4, probabilities 1e-4; losses 1e-4, decoder gradients 1e-3 of their
     scale, loss weights 1e-5);
- 8. prints the `kernels` JSON line and, last, the device line. A kernel's
-    `launches` are those of every driven path together (two explains and
-    the counted training steps), each path counted from zero; its `body`
-    names the design that ran.
+ 8. runs the JAX package's serving configurations at full width, B=8: the
+    entry point's (`EmbedderConfig(dtype="bfloat16")`, unfused frontend
+    LayerNorm and GELU), `bench.py`'s default (bf16, int8, tanh GELU, bf16
+    UNet) and the same after `calibrate_quant` on 16 seeded clips
+    (int8-static; prints the calibration's seconds), each with launches
+    A 9, B 1, C 2, D 0, E 0, finite probabilities in (0, 1), explain ms,
+    clips/s and the stage split by CUDA events; times the frontend's
+    separate bf16 bias adds; and holds a tiny explain of each new
+    configuration (with `quant_conv` and `UNetConfig.quant` once, and
+    `fused_attention=False`) on the card against the CPU, at bars set by
+    each configuration's own distance from the f32 port (`run_tiny_configs`);
+ 9. prints the `kernels` JSON line and, last, the device line. A kernel's
+    `launches` are those of every driven path together (five explains and
+    the counted training steps), each path counted from zero and named in
+    `launches_by_path`; its `body` names the design that ran.
 
 Any failed phase exits non-zero without the last line. Without CUDA it exits
 1 before printing anything.
@@ -551,9 +562,52 @@ def check_backwards(torch, cfg) -> None:
                         1e-4 * float(want.abs().max()))
 
 
-def run_explain(torch, cfg, want: dict, reps: int):
+def stage_split(torch, pipe, wav) -> dict:
+    """Device ms of each stage of one explain on its own (CUDA events, 5
+    calls after a warm-up): spectrogram, predict_mask, masking and the two
+    iSTFTs, and the 3B-batch embedder as frontend, projection + positional
+    conv, and the transformer layers (with the calibrated scales under
+    int8-static)."""
+    from xai_audio_deepfakes_tpu_torch.ops.masking import apply_mask, remask_complex
+    from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
+
+    enc, cfg = pipe.encoder, pipe.cfg
+    static = cfg.embedder.quant == "int8-static" and pipe.quant_scales is not None
+    with torch.inference_mode():
+        out = pipe.explain(wav)
+        _, _, mag, phase = pipe.spectrogram(wav)
+        norm = zero_mean_unit_var_norm(torch.cat([wav, out.relevant_wav, out.irrelevant_wav]))
+        fe = enc.feature_encoder(norm)
+        proj = enc.feature_projection(fe)
+        x = proj + enc.pos_conv(proj)
+
+        def layers():
+            y = x
+            for i, layer in enumerate(enc.layers):
+                y = layer(y, {k: v[i] for k, v in pipe.quant_scales.items()} if static else None)
+
+        def masked_istfts():
+            rel, irr = apply_mask(out.mask, mag, cfg.masking)
+            pipe.istft(*remask_complex(rel, phase))
+            pipe.istft(*remask_complex(irr, phase))
+
+        unet = f"predict_mask (UNet {cfg.unet.dtype}{', int8' if cfg.unet.quant != 'none' else ''})"
+        return {
+            "spectrogram": time_ms(lambda: pipe.spectrogram(wav), iters=5),
+            unet: time_ms(lambda: pipe.predict_mask(mag), iters=5),
+            "masking + 2 iSTFT": time_ms(masked_istfts, iters=5),
+            "embedder: frontend": time_ms(lambda: enc.feature_encoder(norm), iters=5),
+            "embedder: projection + pos conv": time_ms(
+                lambda: proj + enc.pos_conv(enc.feature_projection(fe)), iters=5),
+            f"embedder: {len(enc.layers)} layers": time_ms(layers, iters=5),
+        }
+
+
+def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool = False):
     """One counted explain at full width and `reps` timed ones; returns the
-    launch counts and the three probabilities of every clip."""
+    launch counts and the three probabilities of every clip. Under
+    int8-static the pipeline is first calibrated on 16 seeded clips; with
+    `split` the stage split of `stage_split` is printed."""
     import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.ops import _cuda
@@ -563,6 +617,20 @@ def run_explain(torch, cfg, want: dict, reps: int):
     pipe = ADDvisorPipeline(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     print(f"pipeline built with random weights in {time.perf_counter() - t0:.1f} s")
+    if cfg.embedder.quant == "int8-static":
+        calib = np.random.default_rng(2).standard_normal((16, cfg.audio.num_samples)) * 0.1
+        calib = torch.from_numpy(calib.astype(np.float32)).cuda()
+        pipe.calibrate_quant(calib)  # warm-up: the first call also quantizes the weights
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scales = pipe.calibrate_quant(calib)
+        torch.cuda.synchronize()
+        print(f"calibrate_quant on 16 clips (one batch of 16, p999): "
+              f"{time.perf_counter() - t0:.3f} s; scales "
+              + ", ".join(f"{k} {list(v.shape)}" for k, v in scales.items()))
+        # the head-padded context's pad lanes are zeros: their scales are 0
+        if not all(bool(torch.isfinite(v).all() and (v >= 0).all()) for v in scales.values()):
+            fail("calibrate_quant gave a scale that is negative or not finite")
     wav = np.random.default_rng(0).standard_normal((BATCH, cfg.audio.num_samples)).astype(np.float32) * 0.1
     wav_t = torch.from_numpy(wav).cuda()
     pipe.explain(wav_t)  # warm-up
@@ -583,14 +651,14 @@ def run_explain(torch, cfg, want: dict, reps: int):
     shapes = dict(mask=(BATCH, f, t), magnitude=(BATCH, f, t), phase=(BATCH, f, t),
                   relevant_wav=(BATCH, n), irrelevant_wav=(BATCH, n), probs_clean=(BATCH, 1),
                   probs_relevant=(BATCH, 1), probs_irrelevant=(BATCH, 1))
-    for name, shape in shapes.items():
-        v = getattr(out, name)
+    for key, shape in shapes.items():
+        v = getattr(out, key)
         if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
-            fail(f"explain.{name}: shape {tuple(v.shape)} (want {shape}) or non-finite")
-    for name in ("probs_clean", "probs_relevant", "probs_irrelevant"):
-        p = getattr(out, name)
+            fail(f"explain.{key}: shape {tuple(v.shape)} (want {shape}) or non-finite")
+    for key in ("probs_clean", "probs_relevant", "probs_irrelevant"):
+        p = getattr(out, key)
         if not bool(((p > 0) & (p < 1)).all()):
-            fail(f"explain.{name} outside (0, 1): {p.flatten().tolist()}")
+            fail(f"explain.{key} outside (0, 1): {p.flatten().tolist()}")
     print("probs_clean", [round(v, 4) for v in out.probs_clean.flatten().tolist()])
 
     torch.cuda.synchronize()
@@ -599,10 +667,16 @@ def run_explain(torch, cfg, want: dict, reps: int):
         pipe.explain(wav_t)
     torch.cuda.synchronize()
     steady = (time.perf_counter() - t0) / reps
-    print(f"explain B={BATCH} fused_conv={cfg.embedder.fused_conv}: counted run "
-          f"{first * 1e3:.1f} ms, steady {steady * 1e3:.1f} ms, "
+    e, u = cfg.embedder, cfg.unet
+    name = name or f"fused_conv={e.fused_conv}"
+    print(f"explain B={BATCH} {name} (embedder {e.dtype}, quant {e.quant}, gelu {e.gelu}, "
+          f"fused_ln_gelu {e.fused_ln_gelu}, fused_conv {e.fused_conv}; UNet {u.dtype}): "
+          f"counted run {first * 1e3:.1f} ms, steady {steady * 1e3:.1f} ms, "
           f"{BATCH / steady:.2f} clips/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if split:
+        print(f"  stage split ({name}), device ms: " + json.dumps(
+            {k: round(v, 3) for k, v in stage_split(torch, pipe, wav_t).items()}))
     probs = torch.cat([out.probs_clean, out.probs_relevant, out.probs_irrelevant])
     return launches, probs.flatten().cpu()
 
@@ -703,6 +777,124 @@ def run_training(torch, cfg) -> dict:
     return total
 
 
+def rel_l2(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a - b).norm() / b.norm())
+
+
+def check_bf16_bars(name: str, got, want, want_f32) -> None:
+    """The bf16 bars of `tests/test_torch_bf16.py`: mean |got - want| at most
+    0.4x mean |want - want_f32| (the same configuration's own bf16-vs-f32
+    deviation), max at most max(that deviation's max, two bf16 steps at
+    max |want|)."""
+    import torch
+
+    got, want, want_f32 = got.float().cpu(), want.float().cpu(), want_f32.float().cpu()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite output")
+    err, own = (got - want).abs(), (want - want_f32).abs()
+    two_steps = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 6)
+    bar_max = max(float(own.max()), two_steps)
+    ok = float(err.mean()) <= 0.4 * float(own.mean()) and float(err.max()) <= bar_max
+    print(f"  {name}: mean_abs_err {float(err.mean()):.3e} (bar {0.4 * float(own.mean()):.3e}), "
+          f"max_abs_err {float(err.max()):.3e} (bar {bar_max:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: the card and the CPU disagree beyond the bf16 bars")
+
+
+def run_tiny_configs(torch) -> None:
+    """A tiny explain of each configuration this slice added, on the card
+    against the port on the CPU with the same weights (and, for int8-static,
+    the scales calibrated on the card). The reference for each bar is the
+    same configuration's own distance from the f32, unquantized port on the
+    CPU: bf16 outputs at the bf16 bars (`check_bf16_bars`), int8
+    probabilities at relative L2 <= 1/10 of the int8-vs-f32 relative L2,
+    f32 UNet masks at 1e-5 and their waveforms at 2e-4. The int32 products
+    are exact on both devices; the gap is the float arithmetic around them
+    (cuBLAS / cuDNN sum orders in bf16 against the CPU's), which moves a
+    bf16 rounding, and through it now and then a quantization step."""
+    from xai_audio_deepfakes_tpu_torch.config import (
+        AudioConfig,
+        EmbedderConfig,
+        PipelineConfig,
+        UNetConfig,
+    )
+    from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+
+    tiny_unet = dict(freq_bins=64, frames=24, base_channels=4)
+    cases = {
+        "entry config (bf16 embedder)": (dict(dtype="bfloat16"), {}),
+        "bench default (bf16, int8, tanh, bf16 UNet)": (
+            dict(dtype="bfloat16", quant="int8", gelu="tanh"), dict(dtype="bfloat16")),
+        "bench int8-static": (dict(dtype="bfloat16", quant="int8-static", gelu="tanh"),
+                              dict(dtype="bfloat16")),
+        "quant_conv + UNet int8": (dict(dtype="bfloat16", quant="int8", quant_conv="int8",
+                                        conv_dim=(128, 128, 128)), dict(quant="int8")),
+        "fused_attention=False": (dict(dtype="bfloat16", fused_attention=False), {}),
+    }
+    g = torch.Generator().manual_seed(6)
+    wav = torch.randn(2, 8000, generator=g) * 0.1
+    calib = torch.randn(4, 8000, generator=g) * 0.1
+    names = ("probs_clean", "probs_relevant", "probs_irrelevant")
+    for case, (emb, unet) in cases.items():
+        cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5),
+                             embedder=dataclasses.replace(EmbedderConfig.tiny(), **emb),
+                             unet=UNetConfig(**tiny_unet, **unet))
+        plain = cfg.replace(embedder=dataclasses.replace(cfg.embedder, dtype="float32",
+                                                         quant="none", quant_conv="none"),
+                            unet=UNetConfig(**tiny_unet))
+        gpu = ADDvisorPipeline(cfg, device="cuda", seed=5)
+        pipes = [gpu, ADDvisorPipeline(cfg, device="cpu", seed=5),
+                 ADDvisorPipeline(plain, device="cpu", seed=5)]
+        for pipe in pipes[1:]:
+            pipe.encoder.load_state_dict(gpu.encoder.state_dict())
+            pipe.unet.load_state_dict(gpu.unet.state_dict())
+            pipe.logreg = {k: v.cpu() for k, v in gpu.logreg.items()}
+        if cfg.embedder.quant == "int8-static":
+            scales = gpu.calibrate_quant(calib.cuda(), batch_size=2)
+            pipes[1].quant_scales = {k: v.cpu() for k, v in scales.items()}
+        out_g, out_c, out_f = (p.explain(wav.cuda() if p is gpu else wav) for p in pipes)
+        torch.cuda.synchronize()
+        print(f"tiny explain, {case}, card vs CPU:")
+        probs = [torch.cat([getattr(o, n).cpu() for n in names]) for o in (out_g, out_c, out_f)]
+        if cfg.embedder.quant != "none":
+            err, own = rel_l2(probs[0], probs[1]), rel_l2(probs[1], probs[2])
+            ok = err <= 0.1 * own
+            print(f"  probabilities: rel_l2 {err:.3e} (bar {0.1 * own:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"tiny explain {case}: probabilities disagree beyond the int8 bar")
+        else:
+            check_bf16_bars("probabilities", probs[0], probs[1], probs[2])
+        for key in ("mask", "relevant_wav", "irrelevant_wav"):
+            got, want = getattr(out_g, key).cpu(), getattr(out_c, key)
+            if cfg.unet.dtype == "float32" and cfg.unet.quant == "none":
+                check_close(f"{key}", got, want, 1e-5 if key == "mask" else 2e-4)
+            elif cfg.unet.quant != "none":
+                err, own = rel_l2(got, want), rel_l2(want, getattr(out_f, key))
+                ok = err <= 0.1 * own
+                print(f"  {key}: rel_l2 {err:.3e} (bar {0.1 * own:.3e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"tiny explain {case}: {key} disagrees beyond the int8 bar")
+            else:
+                check_bf16_bars(key, got, want, getattr(out_f, key))
+
+
+def frontend_bias_adds(torch, cfg) -> None:
+    """The cost of the frontend's separate bf16 bias add (the bias cast point
+    of flax's `nn.Conv(dtype=bf16)`): `y + b` over each layer's [3B, 512, L]
+    bf16 conv output, CUDA events, summed over the seven layers."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    per_layer = []
+    with torch.inference_mode():
+        for length in frontend_lengths(cfg):
+            y = torch.randn(3 * BATCH, 512, length, device="cuda", generator=g).to(torch.bfloat16)
+            b = torch.randn(512, device="cuda", generator=g).to(torch.bfloat16)
+            per_layer.append(time_ms(lambda: y + b[:, None]))
+            del y
+    print(f"frontend bias adds (bf16, batch {3 * BATCH}), ms per layer "
+          f"{[round(v, 4) for v in per_layer]}, {sum(per_layer):.4f} ms per explain")
+
+
 def run_tiny_training(torch) -> None:
     """One tiny f32 training step on the card against the same step on the
     CPU: conv widths of 128, so that kernel E runs, and both fused frontend
@@ -754,7 +946,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
+    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig, UNetConfig
     from xai_audio_deepfakes_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -773,7 +965,7 @@ def main() -> int:
             print("  " + line.strip())
     check_sass(_cuda.build())
 
-    # bf16 needs fused_ln_gelu=True: the port has only kernel D's cast points
+    # the frontend through kernel D: fused_ln_gelu=True at 512 channels
     cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True))
     fused = cfg.replace(embedder=dataclasses.replace(cfg.embedder, fused_conv=True))
     rows: list = []
@@ -799,11 +991,27 @@ def main() -> int:
     run_tiny_reference(torch)
     run_tiny_training(torch)
 
+    # the JAX package's serving configurations: the entry point's (bf16,
+    # fused_ln_gelu False) and bench.py's default (bf16, int8, tanh, bf16
+    # UNet), then the same calibrated (int8-static); no frontend kernel runs
+    entry = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16"))
+    bench = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", quant="int8", gelu="tanh"),
+                           unet=UNetConfig(dtype="bfloat16"))
+    static = bench.replace(embedder=dataclasses.replace(bench.embedder, quant="int8-static"))
+    serving = {"attention": n_layers, "stft": 1, "istft": 2, "ln_gelu": 0, "conv_ln_gelu": 0}
+    paths = {"explain": counts[0][0], "explain_fused_conv": counts[1][0],
+             "train_3_steps": train_launches}
+    for path, pcfg in (("explain_entry_config", entry), ("explain_bench_default", bench),
+                       ("explain_int8_static", static)):
+        torch.cuda.empty_cache()
+        paths[path] = run_explain(torch, pcfg, serving, reps=2, name=path, split=True)[0]
+    torch.cuda.empty_cache()
+    frontend_bias_adds(torch, cfg)
+    run_tiny_configs(torch)
+
     for row in rows:
-        row["launches"] = counts[0][0][row["name"]] + counts[1][0][row["name"]] + train_launches[row["name"]]
-        row["launches_by_path"] = {"explain": counts[0][0][row["name"]],
-                                   "explain_fused_conv": counts[1][0][row["name"]],
-                                   "train_3_steps": train_launches[row["name"]]}
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] < 1:
             fail(f"kernel {row['name']} was launched by no driven path")
     order = {"attention": 0, "stft": 1, "istft": 2, "ln_gelu": 3, "conv_ln_gelu": 4}

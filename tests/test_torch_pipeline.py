@@ -17,7 +17,9 @@ import torch
 from xai_audio_deepfakes_tpu import config as jc
 from xai_audio_deepfakes_tpu.models.logreg import LogReg
 from xai_audio_deepfakes_tpu.pipeline.core import ADDvisorPipeline as JPipeline
+from tests.test_torch_bf16 import _assert_bars, _jax_explain
 from tests.test_torch_models import random_params
+from tests.test_torch_quant import _rel_l2
 from xai_audio_deepfakes_tpu_torch import config as tc
 from xai_audio_deepfakes_tpu_torch.convert import load_jax_params
 from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
@@ -116,14 +118,54 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("changes", [
-    {"quant": "int8"}, {"quant_conv": "int8"}, {"scan_layers": True},
-    {"remat": True, "remat_policy": "dots"}, {"fused_attention": False},
+    {"scan_layers": True}, {"remat": True, "remat_policy": "dots"},
 ], ids=lambda c: "-".join(c))
 def test_unported_embedder_options_raise(changes):
     cfg = _tiny(tc)
     cfg = cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, **changes))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
         ADDvisorPipeline(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("changes", [
+    {"quant": "int8"}, {"quant_conv": "int8", "conv_dim": (128, 128, 128)},
+    {"fused_attention": False},
+], ids=lambda c: "-".join(c))
+def test_formerly_unported_embedder_options_match_jax(jax_params, changes):
+    """The f32 explain with the embedder options the port used to refuse,
+    against the JAX pipeline's `jit_explain` on the same weights: with
+    `fused_attention=False` at the float bars of
+    `test_explain_matches_jax_jit_explain`; with int8 the probabilities'
+    relative L2 at most 1/10 of JAX's own int8-vs-f32 (quant_conv needs a
+    frontend of at least 64 channels)."""
+    params = jax_params
+    if "conv_dim" in changes:
+        jcfg = _tiny(jc)
+        jcfg = jcfg.replace(embedder=tc.dataclasses.replace(jcfg.embedder, conv_dim=changes["conv_dim"]))
+        params = dict(params, encoder=random_params(
+            JPipeline(jcfg).encoder.init, jax.random.PRNGKey(0),
+            jnp.zeros((1, 8000), jnp.float32), seed=3))
+    wav = np.random.default_rng(4).standard_normal((2, 8000)).astype(np.float32) * 0.1
+    outs = {}
+    for name, kw in (("float", {k: v for k, v in changes.items() if k == "conv_dim"}),
+                     ("changed", changes)):
+        jcfg = _tiny(jc)
+        jcfg = jcfg.replace(embedder=tc.dataclasses.replace(jcfg.embedder, **kw))
+        outs[name] = JPipeline(jcfg).jit_explain()(params, jnp.asarray(wav))
+    cfg = _tiny(tc)
+    pipe = ADDvisorPipeline(cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, **changes)),
+                            device="cpu", seed=9)
+    load_jax_params(pipe, params)
+    out, ref = pipe.explain(wav), outs["changed"]
+    names = ("probs_clean", "probs_relevant", "probs_irrelevant")
+    if "fused_attention" in changes:
+        for name in names:
+            np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(ref, name)),
+                                       atol=1e-4, err_msg=name)
+        return
+    probs = lambda o: np.concatenate([np.asarray(getattr(o, n)) for n in names])  # noqa: E731
+    got = torch.cat([getattr(out, n) for n in names]).numpy()
+    assert _rel_l2(got, probs(ref)) <= 0.1 * _rel_l2(probs(ref), probs(outs["float"]))
 
 
 def test_explain_with_fused_conv_matches_default():
@@ -141,24 +183,41 @@ def test_explain_with_fused_conv_matches_default():
         assert not getattr(b, name).requires_grad
 
 
-@pytest.mark.parametrize("fused_ln_gelu,precision,raises", [
-    (False, "high", True),  # bf16 GELU in the compute dtype: not the kernel's
-    (True, "default", True),  # one-pass bf16 DFT
-    (True, "highest", False),
+@pytest.fixture(scope="module")
+def bf16_reference(jax_params):
+    """JAX's tiny explain with a bf16 embedder (eager embedder pass, its
+    attention kernel in interpret mode) and with an f32 one. At 8 channels
+    JAX never takes its LN+GELU kernel, and its CPU STFT is exact f32 at
+    every precision, so one reference serves every case below."""
+    wav = np.random.default_rng(6).standard_normal((1, 8000)).astype(np.float32) * 0.1
+    probs = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = _tiny(jc)
+        cfg = cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, dtype=dtype,
+                                                          fused_interpret=True))
+        probs[dtype] = _jax_explain(JPipeline(cfg), jax_params, jnp.asarray(wav))[3]
+    return wav, probs
+
+
+@pytest.mark.parametrize("fused_ln_gelu,precision", [
+    (False, "high"),  # the entry point's configuration: unfused LN, GELU in bf16
+    (True, "default"),  # one-pass bf16 DFT on the TPU, exact f32 here as in JAX
+    (True, "highest"),
 ])
-def test_formulation_switches(fused_ln_gelu, precision, raises):
-    """A bf16 config is accepted only where its switches name the one
-    formulation the port runs (kernel D's cast points, an f32 DFT)."""
+def test_formulation_switches(jax_params, bf16_reference, fused_ln_gelu, precision):
+    """Every bf16 formulation switch runs, and the explain's probabilities
+    match JAX's bf16 explain at the bars of `tests/test_torch_bf16.py`."""
     cfg = _tiny(tc)
     cfg = cfg.replace(
         stft=tc.dataclasses.replace(cfg.stft, precision=precision),
         embedder=tc.dataclasses.replace(cfg.embedder, dtype="bfloat16",
                                         fused_ln_gelu=fused_ln_gelu))
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ADDvisorPipeline(cfg, device="cpu")
-    else:
-        ADDvisorPipeline(cfg, device="cpu")
+    pipe = ADDvisorPipeline(cfg, device="cpu")
+    load_jax_params(pipe, jax_params)
+    wav, probs = bf16_reference
+    out = pipe.explain(wav)
+    got = torch.cat([out.probs_clean, out.probs_relevant, out.probs_irrelevant]).numpy()
+    _assert_bars(got, probs["bfloat16"], probs["float32"], "probabilities")
 
 
 def test_unported_entry_points_raise():

@@ -97,6 +97,15 @@ def test_training_switches(changes, raises):
         tc.check_supported(cfg)
 
 
+def test_trainer_refuses_the_bf16_unet():
+    """The bf16 UNet serves; its training step is a later slice."""
+    pipe = ADDvisorPipeline(tiny().replace(unet=dataclasses.replace(tiny().unet, dtype="bfloat16")),
+                            device="cpu")
+    for fn in (init_train_state, make_train_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+            fn(pipe)
+
+
 def test_trainer_defaults_to_cuda_and_refuses_the_feature_decoder():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -8,33 +8,43 @@ training of the UNet decoder (`loss`, `train`); the mel, vocoder,
 feature-decoder and mesh configs arrive with the slices that use them
 (ROADMAP.md, Queue 1).
 
-The port has one formulation of each op: its hand-written kernels on the
-card and their plain PyTorch versions, with the same order of operations,
-on the CPU. The JAX package's implementation switches are therefore
-honoured only where their values name that formulation, and
-`check_supported` raises `NotImplementedError` on any other value:
+The JAX package's implementation switches select formulations, and the
+port runs each formulation it accepts with the same cast points: its
+hand-written kernels on the card and their plain PyTorch versions, with the
+same order of operations, on the CPU; the XLA paths of the JAX package
+(unfused LayerNorm and GELU, einsum attention, int8 products) as plain
+PyTorch on both.
 
 - `STFTConfig.use_pallas`: both values compute the same f32 DFT; accepted.
 - `STFTConfig.precision`: the MXU pass count of the TPU's DFT matmuls. The
-  JAX package's CPU path ignores it and computes in f32, as the port does
-  for "high" and "highest". "default" (one bf16 pass) raises.
-- `EmbedderConfig.fused_attention=False` selects `attention_reference`'s
-  order (p normalised, then cast), which differs from the kernel's in bf16:
-  raises.
-- `EmbedderConfig.fused_ln_gelu=False` computes GELU in the compute dtype.
-  The same in f32; in bf16 it differs from the kernel's f32 GELU: raises.
+  JAX package's CPU path ignores it and computes every precision in exact
+  f32; so does the port, for all three values ("default", one bf16 pass on
+  the TPU, has no CPU reference to be held against).
+- `EmbedderConfig.fused_attention`: True takes the head-padded projections
+  and kernel A; False the unpadded projections and `attention_reference`'s
+  einsum order (p normalised in f32, then cast).
+- `EmbedderConfig.fused_ln_gelu`: True takes kernel D's cast points (GELU in
+  f32) at the frontend layers whose channel count is a multiple of 128, as
+  the JAX package takes its kernel there; every other layer, and every
+  layer with False, runs the f32-statistics LayerNorm and GELU in the
+  compute dtype.
 - `EmbedderConfig.fused_conv=True` takes kernel E (conv + LayerNorm + GELU in
-  one pass) for the frontend layers it covers; accepted. In f32 it equals
-  the unfused path; in bf16 it has the kernel's cast points.
+  one pass) for the frontend layers it covers. In f32 it equals the unfused
+  path; in bf16 it has the kernel's cast points.
 - `EmbedderConfig.fused_interpret` runs the Pallas kernels in interpret
   mode, which is the formulation the port has; accepted.
+- `EmbedderConfig.quant` "int8" / "int8-static", `quant_conv="int8"` and
+  `UNetConfig.quant="int8"`: the int8 serving paths (`ops/quant.py`);
+  int8-static uses the scales of `ADDvisorPipeline.calibrate_quant`.
+- `UNetConfig.dtype="bfloat16"`: bf16 convolutions with f32 BatchNorm,
+  serving only; the trainer refuses it (ROADMAP Queue 1 item 7).
 - `EmbedderConfig.remat=True` checkpoints each transformer layer
   (`torch.utils.checkpoint`), which is `remat_policy="full"`; "dots" raises.
 - `TrainConfig.target_quant` other than "none" raises (ROADMAP Queue 1
-  item 6, the int8 variants); `target_gelu="tanh"` is accepted.
+  item 7); `target_gelu="tanh"` is accepted.
 
-Fields that select behaviour this slice does not implement raise
-`NotImplementedError` likewise.
+Fields that select behaviour the port does not implement yet raise
+`NotImplementedError`, citing their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -76,7 +86,7 @@ class STFTConfig:
     center: bool = True
     pad_mode: str = "reflect"
     use_pallas: bool = False  # JAX-side kernel switch; see module docstring
-    precision: str = "high"  # "high" | "highest": the port computes in f32
+    precision: str = "high"  # "default" | "high" | "highest": all exact f32 here
 
     @property
     def num_bins(self) -> int:
@@ -198,7 +208,7 @@ class TrainConfig:
     artifact_dir: str = "explanations"
     checkpoint_every: int = 1
     donate_buffers: bool = True
-    target_quant: str = "none"  # "none" | "int8" (int8 not ported)
+    target_quant: str = "none"  # "none" | "int8" (int8 not ported yet)
     target_gelu: str = "exact"  # "exact" | "tanh"
     freeze_l1_weight: bool = False
 
@@ -219,31 +229,29 @@ class PipelineConfig:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise on configuration this slice of the port does not implement."""
+    """Raise on configuration the port does not implement."""
     e, u = cfg.embedder, cfg.unet
     todo = {
-        "STFTConfig.precision=default": (cfg.stft.precision == "default", "Queue 1 item 2"),
-        "EmbedderConfig.fused_attention=False": (not e.fused_attention, "Queue 1 item 4"),
-        "EmbedderConfig.fused_ln_gelu=False with bfloat16": (
-            e.dtype == "bfloat16" and not e.fused_ln_gelu, "Queue 1 item 4"),
-        "EmbedderConfig.quant": (e.quant != "none", "Queue 1 item 6"),
-        "EmbedderConfig.quant_conv": (e.quant_conv != "none", "Queue 1 item 6"),
-        "UNetConfig.quant": (u.quant != "none", "Queue 1 item 6"),
         "EmbedderConfig.scan_layers": (e.scan_layers, "Queue 1 item 4"),
         "EmbedderConfig.remat_policy other than full": (
-            e.remat and e.remat_policy != "full", "Queue 1 item 7"),
-        "TrainConfig.target_quant": (cfg.train.target_quant != "none", "Queue 1 item 6"),
-        "UNetConfig.dtype=bfloat16": (u.dtype != "float32", "Queue 1 item 3"),
+            e.remat and e.remat_policy != "full", "Queue 1 item 4"),
+        "TrainConfig.target_quant": (cfg.train.target_quant != "none", "Queue 1 item 7"),
     }
     for name, (unsupported, item) in todo.items():
         if unsupported:
             raise NotImplementedError(
                 f"{name} is not ported yet (ROADMAP.md {item})"
             )
-    if cfg.stft.precision not in ("default", "high", "highest"):
-        raise ValueError(f"unknown STFT precision: {cfg.stft.precision!r}")
-    if e.dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"unknown embedder dtype: {e.dtype!r}")
-    for gelu in (e.gelu, cfg.train.target_gelu):
-        if gelu not in ("exact", "tanh"):
-            raise ValueError(f"unknown gelu: {gelu!r}")
+    choices = {
+        "STFT precision": (cfg.stft.precision, ("default", "high", "highest")),
+        "embedder dtype": (e.dtype, ("float32", "bfloat16")),
+        "UNet dtype": (u.dtype, ("float32", "bfloat16")),
+        "embedder quant": (e.quant, ("none", "int8", "int8-static")),
+        "embedder quant_conv": (e.quant_conv, ("none", "int8")),
+        "UNet quant": (u.quant, ("none", "int8")),
+        "gelu": (e.gelu, ("exact", "tanh")),
+        "target gelu": (cfg.train.target_gelu, ("exact", "tanh")),
+    }
+    for name, (value, allowed) in choices.items():
+        if value not in allowed:
+            raise ValueError(f"unknown {name}: {value!r}")

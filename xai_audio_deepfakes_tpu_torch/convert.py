@@ -6,7 +6,8 @@ the JAX train state leaf by leaf.
 Input: the tree of `ADDvisorPipeline.init_params(...)` (or one loaded from a
 JAX checkpoint) with every leaf converted to a numpy array:
   {"encoder": {"params": ...}, "unet": {"params": ..., "batch_stats": ...},
-   "logreg": {"weight": [D, 1], "bias": [1]}}
+   "logreg": {"weight": [D, 1], "bias": [1]},
+   "quant_scales": {site: [n_layers, C_site]}  (after `calibrate_quant`)}
 The layout rules invert those of the JAX package's importers
 (`models/unet.py::params_from_torch_state_dict`,
 `models/wav2vec2.py::params_from_hf_state_dict`):
@@ -146,6 +147,8 @@ def load_encoder(enc: Wav2Vec2Encoder, params: dict) -> None:
         for ln, name in ((layer.attn_ln, "attn_ln"), (layer.ffn_ln, "ffn_ln")):
             _set(ln.weight, leaf[name]["scale"])
             _set(ln.bias, leaf[name]["bias"])
+        # q/k/v/out are head-padded (`HeadDense`) with fused attention and
+        # plain `Dense` without; both read the same unpadded flax leaves
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             dense = getattr(layer, name)
             dense.set_dense(
@@ -153,21 +156,30 @@ def load_encoder(enc: Wav2Vec2Encoder, params: dict) -> None:
                 _t(leaf[name]["bias"]).to(dense.weight.device),
             )
         for name in ("ffn_in", "ffn_out"):
-            lin = getattr(layer, name)
-            _set(lin.weight, np.asarray(leaf[name]["kernel"]).T)
-            _set(lin.bias, leaf[name]["bias"])
+            dense = getattr(layer, name)
+            _set(dense.weight, np.asarray(leaf[name]["kernel"]).T)
+            _set(dense.bias, leaf[name]["bias"])
 
     if enc.final_ln is not None:
         _set(enc.final_ln.weight, params["final_ln"]["scale"])
         _set(enc.final_ln.bias, params["final_ln"]["bias"])
 
 
+def load_quant_scales(pipe, scales: dict) -> None:
+    """A JAX `params["quant_scales"]` tree ({site: [n_layers, C_site]}, the
+    output of its `calibrate_quant`) -> the pipeline's static int8 scales."""
+    pipe.quant_scales = {k: _t(v).to(pipe.device) for k, v in scales.items()}
+
+
 def load_jax_params(pipe, params: dict) -> None:
     """Set every weight of a port `ADDvisorPipeline` from a JAX pipeline's
-    numpy parameter tree."""
+    numpy parameter tree, and its static int8 scales where the tree carries
+    them."""
     load_encoder(pipe.encoder, params["encoder"]["params"])
     load_unet(pipe.unet, params["unet"])
     pipe.logreg = {
         "weight": _t(params["logreg"]["weight"]).to(pipe.device),
         "bias": _t(params["logreg"]["bias"]).to(pipe.device),
     }
+    if "quant_scales" in params:
+        load_quant_scales(pipe, params["quant_scales"])

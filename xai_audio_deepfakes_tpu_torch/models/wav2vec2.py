@@ -1,14 +1,13 @@
-"""Truncated wav2vec2 XLS-R embedder, float path (port of
-`models/wav2vec2.py`).
+"""Truncated wav2vec2 XLS-R embedder (port of `models/wav2vec2.py`): the
+float path in f32 or bf16 and the int8 serving path.
 
   waveform [B, 80000]
     -> 7 conv layers, each conv -> channel LayerNorm (f32 statistics) ->
        GELU, 320x downsampling -> [B, 512, 249] (kept [B, C, L] throughout,
-       the layout F.conv1d takes; the LN+GELU epilogue is kernel D, and with
-       `fused_conv` the stride-2 layers 1-6 are kernel E, conv included)
-    -> feature projection: LayerNorm(512) in f32 -> Linear(512 -> 1920)
+       the layout F.conv1d takes)
+    -> feature projection: LayerNorm(512) in f32 -> Dense(512 -> 1920)
     -> + grouped positional conv (k 128, 16 groups, trailing frame dropped)
-    -> 9 pre-LN transformer layers (attention through kernel A)
+    -> 9 pre-LN transformer layers
     -> hidden_states[output_layer], not final-LN'd unless configured.
 
 The weights are frozen in every use the system has (serving, and LMAC
@@ -17,12 +16,38 @@ a gradient flows to the input through the kernels' autograd functions. With
 `remat` each transformer layer is recomputed in the backward pass
 (`torch.utils.checkpoint`, the "full" policy).
 
-Dense and conv weights are stored in the compute dtype (the JAX package
-casts its f32 weights to that dtype at every use, which gives the same
-products); LayerNorm parameters stay f32. The q/k/v/out projections are
-`HeadDense`: their weights are zero-padded per head from head dim 120 to 128
-once, when the weights are set, instead of at every call as the JAX package
-does under jit.
+Cast points (those of the JAX source, which eager `apply` follows; XLA's
+fusion under `jax.jit` drops some of the roundings on the CPU):
+  * Dense and conv layers in the compute dtype round the bias-free product to
+    that dtype, then add the bias in that dtype (`_dense`, `_conv1d`), as
+    flax's `nn.Dense` / `nn.Conv(dtype=...)` do.
+  * GELU outside the kernels runs in the compute dtype, rounded after every
+    operation in bf16 (`_gelu`).
+  * A frontend layer takes kernel D's cast points (GELU in f32 from the
+    rounded LayerNorm output) only where the JAX package takes its kernel:
+    `fused_ln_gelu` and a channel count that is a multiple of 128
+    (`supports_ln_gelu`). Elsewhere it runs `_LNf32Stats` (cast to the
+    compute dtype) and `_gelu`. With `fused_conv` the layers kernel E covers
+    run E, conv included.
+  * Attention: with `fused_attention`, head-padded projections and kernel A;
+    without it, unpadded projections and `attention_reference`'s einsum
+    order.
+
+Int8 (`quant` "int8" or "int8-static", the `ops/quant.py` scheme): the
+positional conv is `_Int8GroupedConv` (per-sample activation scale) and the
+six projections of each layer are int8 products, their activations
+quantized at four sites (`qkv`, shared by q/k/v, `ctx`, `ffn_in`, `ffn_out`):
+per token, or, with `int8-static` and calibrated `act_scales`, per channel
+with the scales folded into the weights. `quant_conv="int8"` runs the
+frontend layers with Cin >= 64 as int8 convs followed by the unfused
+LayerNorm and GELU. Quantized layers keep f32 weights (the JAX package
+quantizes its f32 parameters); their int8 images are computed once per
+weight and per set of scales (`_derived`), not at every call.
+
+Float Dense and conv weights are stored in the compute dtype (the JAX
+package casts its f32 weights to that dtype at every use, which gives the
+same products); LayerNorm parameters stay f32. `HeadDense` zero-pads the
+q/k/v/out weights per head from head dim 120 to 128 once, when they are set.
 
 flax's `nn.LayerNorm` computes the variance as E[x^2] - E[x]^2; F.layer_norm
 uses the centred form. At f32 the two differ by about 1e-6 relative, which
@@ -41,13 +66,59 @@ from torch.utils.checkpoint import checkpoint
 
 from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig
 from xai_audio_deepfakes_tpu_torch.device import torch_dtype
-from xai_audio_deepfakes_tpu_torch.ops.attention import attention, head_pad_dim
+from xai_audio_deepfakes_tpu_torch.ops.attention import (
+    attention,
+    attention_reference,
+    head_pad_dim,
+)
 from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, supports_fused_conv
-from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu
+from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import (
+    channel_layer_norm,
+    ln_gelu,
+    supports_ln_gelu,
+)
+from xai_audio_deepfakes_tpu_torch.ops.quant import (
+    derived,
+    fold_static_scales,
+    int8_conv1d,
+    int8_conv1d_q,
+    int8_linear,
+    quantize_symmetric,
+    quantize_weight,
+    quantize_with_scale,
+)
 
 
 def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh" if kind == "tanh" else "none")
+    """GELU in x's dtype ("exact" erf form or the "tanh" approximation).
+
+    In bf16 it rounds after every operation, in the order and with the bf16
+    constants of `jax.make_jaxpr(jax.nn.gelu)` on a bf16 array:
+      exact: b = 0.5 * x; d = (-x) * 0.70703125; b * erfc(d)
+      tanh:  c = 0.044677734375 * (x * x * x); e = 0.796875 * (x + c);
+             x * (0.5 * (1 + tanh(e)))
+    (every constant is exact in bf16, so torch's f32 arithmetic on a python
+    scalar rounds as XLA's bf16 ops do). In f32 it is F.gelu."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh" if kind == "tanh" else "none")
+    if kind == "tanh":
+        e = (x + (x * x * x) * 0.044677734375) * 0.796875
+        return x * ((torch.tanh(e) + 1.0) * 0.5)
+    return (x * 0.5) * torch.special.erfc(-x * 0.70703125)
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """flax `nn.Dense(dtype=weight.dtype)`: the bias-free product rounded to
+    the weight's dtype, then the bias added in that dtype."""
+    return F.linear(x.to(weight.dtype), weight) + bias
+
+
+def _conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+    """flax `nn.Conv(dtype=...)` on [B, C, L]: the bias-free convolution in the
+    weight's dtype, then the bias added in that dtype."""
+    y = F.conv1d(x.to(conv.weight.dtype), conv.weight, None, conv.stride, conv.padding,
+                 groups=conv.groups)
+    return y if conv.bias is None else y + conv.bias[:, None]
 
 
 def _init_dense_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -69,29 +140,46 @@ class _LNParams(nn.Module):
 
 
 class ConvLayerNormBlock(nn.Module):
-    """conv1d -> channel LayerNorm with f32 statistics (`_LNf32Stats`) ->
-    GELU. [B, Cin, L] -> [B, Cout, L']. With `cfg.fused_conv`, a layer that
-    kernel E covers runs all three in it; any other layer runs cuDNN's conv
-    and kernel D."""
+    """conv1d -> channel LayerNorm with f32 statistics -> GELU, [B, Cin, L] ->
+    [B, Cout, L']: kernel E (`fused_conv`, where it covers the layer), the
+    conv and kernel D (`fused_ln_gelu` at a channel count D's JAX
+    counterpart takes), an int8 conv (`quant_conv`, Cin >= 64) or the conv
+    with the unfused LayerNorm and GELU."""
 
     def __init__(self, cin, cout, kernel, stride, cfg: EmbedderConfig, generator, device):
         super().__init__()
         self.cfg = cfg
         self.fusable = supports_fused_conv(kernel, stride, cin, cout)
-        dt = torch_dtype(cfg.dtype)
-        self.conv = nn.Conv1d(cin, cout, kernel, stride, bias=cfg.conv_bias,
-                              device=device, dtype=dt)
+        self.quant = cfg.quant_conv == "int8" and cin >= 64
+        self.dtype = torch_dtype(cfg.dtype)
+        self.conv = nn.Conv1d(cin, cout, kernel, stride, bias=cfg.conv_bias, device=device,
+                              dtype=torch.float32 if self.quant else self.dtype)
         _init_dense_(self.conv.weight, cin * kernel, generator)
         if cfg.conv_bias:
             nn.init.zeros_(self.conv.bias)
         self.layer_norm = _LNParams(cout, device)
 
+    def _unfused(self, y: torch.Tensor) -> torch.Tensor:
+        """`_LNf32Stats` (cast to the compute dtype), then `_gelu`."""
+        ln = self.layer_norm
+        normed = channel_layer_norm(y.float(), ln.weight, ln.bias, self.cfg.layer_norm_eps)
+        return _gelu(normed.to(self.dtype), self.cfg.gelu)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, ln = self.cfg, self.layer_norm
+        cfg, ln, conv = self.cfg, self.layer_norm, self.conv
+        if self.quant:
+            wq = derived(self, "wq", quantize_weight, conv.weight)
+            y = int8_conv1d(x, conv.weight, conv.stride[0], quantized=wq)  # [B, L', C] f32
+            if conv.bias is not None:
+                y = y + conv.bias
+            return self._unfused(y.to(self.dtype).transpose(1, 2))
         if cfg.fused_conv and self.fusable:
-            return conv_ln_gelu(x, self.conv.weight, self.conv.bias, ln.weight, ln.bias,
+            return conv_ln_gelu(x, conv.weight, conv.bias, ln.weight, ln.bias,
                                 cfg.layer_norm_eps, cfg.gelu)
-        return ln_gelu(self.conv(x), ln.weight, ln.bias, cfg.layer_norm_eps, cfg.gelu)
+        y = _conv1d(x, conv)
+        if cfg.fused_ln_gelu and supports_ln_gelu(conv.out_channels):
+            return ln_gelu(y, ln.weight, ln.bias, cfg.layer_norm_eps, cfg.gelu)
+        return self._unfused(y)
 
 
 class FeatureEncoder(nn.Module):
@@ -111,57 +199,115 @@ class FeatureEncoder(nn.Module):
         return x
 
 
+class Dense(nn.Module):
+    """A projection y = x W^T + b, W [out, in]: flax `nn.Dense`'s cast points
+    (`_dense`), or with `quant` the int8 product of `Int8Dense`, f32 bias
+    added, cast to the compute dtype. `forward(x, site)` takes the
+    activation's quantization from `site` = (xq, sx, s_act) when several
+    projections share one: per-token scales sx, or static per-channel scales
+    s_act (sx None), which the weight folds in (`fold_static_scales`)."""
+
+    def __init__(self, fin: int, fout: int, dtype, generator, device, quant: bool = False,
+                 shape: tuple | None = None):
+        super().__init__()
+        self.dtype, self.quant = dtype, quant
+        wdt = torch.float32 if quant else dtype
+        self.bias = nn.Parameter(torch.zeros(fout if shape is None else shape[0],
+                                             device=device, dtype=wdt))
+        if shape is None:
+            self.weight = nn.Parameter(torch.empty((fout, fin), device=device, dtype=wdt))
+            _init_dense_(self.weight, fin, generator)
+        else:  # set by the subclass
+            self.weight = nn.Parameter(torch.zeros(shape, device=device, dtype=wdt))
+
+    def set_dense(self, weight: torch.Tensor, bias: torch.Tensor) -> None:
+        """Set from a torch-layout weight [out, in] and bias [out]."""
+        with torch.no_grad():
+            self.weight.copy_(weight)
+            self.bias.copy_(bias)
+
+    def forward(self, x: torch.Tensor, site=None) -> torch.Tensor:
+        if not self.quant:
+            return _dense(x, self.weight, self.bias)
+        xq, sx, s_act = (*quantize_symmetric(x, dim=-1), None) if site is None else site
+        if sx is None:
+            wq, sw = derived(self, "static", fold_static_scales, self.weight, s_act)
+            y = int8_linear(xq, 1.0, wq, sw)
+        else:
+            y = int8_linear(xq, sx, *derived(self, "dynamic", quantize_weight, self.weight))
+        return (y + self.bias).to(self.dtype)
+
+
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: EmbedderConfig, generator, device):
         super().__init__()
         c = cfg.conv_dim[-1]
         self.eps = cfg.layer_norm_eps
         self.layer_norm = _LNParams(c, device)
-        self.projection = nn.Linear(c, cfg.hidden_size, device=device,
-                                    dtype=torch_dtype(cfg.dtype))
-        _init_dense_(self.projection.weight, c, generator)
-        nn.init.zeros_(self.projection.bias)
+        self.projection = Dense(c, cfg.hidden_size, torch_dtype(cfg.dtype), generator, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T] -> [B, T, H]
-        y = self.layer_norm(x.transpose(1, 2), self.eps)
-        return self.projection(y.to(self.projection.weight.dtype))
+        return self.projection(self.layer_norm(x.transpose(1, 2), self.eps))
+
+
+def _quantize_floor_first(x: torch.Tensor, dim) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_Int8GroupedConv`'s quantization: s = max(max|x|, 1e-12) / 127 (the
+    floor before the division, unlike `quantize_symmetric`)."""
+    x = x.float()
+    scale = torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), 1e-12) / 127.0
+    return quantize_with_scale(x, scale), scale
 
 
 class PositionalConvEmbedding(nn.Module):
     """Grouped conv1d positional embedding; padding k//2 and, for even k,
     the trailing frame dropped (HF Wav2Vec2SamePadLayer). Weight norm is a
-    training reparametrisation: the weight here is the effective g * v/|v|."""
+    training reparametrisation: the weight here is the effective g * v/|v|.
+    With `quant` the conv is `_Int8GroupedConv`: one activation scale per
+    sample (over time and channels, so a clip's output does not depend on
+    its batch neighbours), one weight scale per output channel, int32 sums,
+    the f32 bias added and the result cast to x's dtype."""
 
     def __init__(self, cfg: EmbedderConfig, generator, device):
         super().__init__()
         h, k, g = cfg.hidden_size, cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
         self.k, self.cfg = k, cfg
+        self.quant = cfg.quant != "none"
         self.conv = nn.Conv1d(h, h, k, padding=k // 2, groups=g, device=device,
-                              dtype=torch_dtype(cfg.dtype))
+                              dtype=torch.float32 if self.quant else torch_dtype(cfg.dtype))
         _init_dense_(self.conv.weight, k * h // g, generator)
         nn.init.zeros_(self.conv.bias)
 
+    def _int8(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H] -> [B, T', H]
+        conv = self.conv
+        xq, sx = _quantize_floor_first(x, dim=(1, 2))  # sx [B, 1, 1]
+        wq, sw = derived(self, "wq", lambda w: _quantize_floor_first(w, (1, 2)), conv.weight)
+        acc = int8_conv1d_q(xq.transpose(1, 2), wq, 1, conv.padding[0], conv.groups)
+        return (acc.float() * (sx * sw.reshape(-1)) + conv.bias).to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H] -> [B, T, H]
-        y = self.conv(x.transpose(1, 2))
+        if self.quant:
+            y = self._int8(x)
+            return _gelu(y[:, :-1] if self.k % 2 == 0 else y, self.cfg.gelu)
+        y = _conv1d(x.transpose(1, 2), self.conv)
         if self.k % 2 == 0:
             y = y[..., :-1]
         return _gelu(y, self.cfg.gelu).transpose(1, 2)
 
 
-class HeadDense(nn.Module):
+class HeadDense(Dense):
     """Attention projection with per-head zero padding of head dim hd to hdp.
     pad_axis=1 pads the outputs (q/k/v give [B, T, NH * hdp] with exact-zero
     pad lanes); pad_axis=0 pads the inputs (out_proj reads the padded
-    context). `weight` is [out, in] in the padded layout."""
+    context). `weight` is [out, in] in the padded layout. The zero pad
+    columns and rows survive int8 quantization as exact zeros."""
 
-    def __init__(self, h: int, nh: int, hd: int, pad_axis: int, dtype, generator, device):
-        super().__init__()
+    def __init__(self, h: int, nh: int, hd: int, pad_axis: int, dtype, generator, device,
+                 quant: bool = False):
         hdp = head_pad_dim(hd)
-        self.nh, self.hd, self.hdp, self.pad_axis = nh, hd, hdp, pad_axis
         shape = (nh * hdp, h) if pad_axis == 1 else (h, nh * hdp)
-        self.weight = nn.Parameter(torch.zeros(shape, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(shape[0], device=device, dtype=dtype))
-        dense = torch.empty((h, h), device=device, dtype=dtype)
+        super().__init__(h, h, dtype, generator, device, quant, shape=shape)
+        self.nh, self.hd, self.hdp, self.pad_axis = nh, hd, hdp, pad_axis
+        dense = torch.empty((h, h), device=device, dtype=self.weight.dtype)
         _init_dense_(dense, h, generator)
         self.set_dense(dense, torch.zeros(h, device=device))
 
@@ -178,39 +324,93 @@ class HeadDense(nn.Module):
                 self.weight.view(-1, nh, hdp)[:, :, :hd].copy_(weight.reshape(-1, nh, hd))
                 self.bias.copy_(bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+def _quantile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """`jnp.quantile(a, q, axis=0)` for a [N, C] f32: linear interpolation
+    between the order statistics floor(q (N - 1)) and ceil(q (N - 1)),
+    weights computed in f32. Takes the few largest values per channel
+    (`topk`) instead of a sort; `torch.quantile` refuses inputs of more than
+    2^24 elements, which the full-width FFN site exceeds."""
+    n = a.shape[0]
+    pos = torch.tensor(q, dtype=torch.float32) * float(n - 1)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    w_lo = 1.0 - w_hi
+    top = torch.topk(a, n - int(lo), dim=0).values  # descending: top[-1] is order stat lo
+    return top[-1] * w_lo.to(a.device) + top[-1 - int(hi - lo)] * w_hi.to(a.device)
+
+
+def _absmax_stats(t: torch.Tensor) -> torch.Tensor:
+    """[..., C] -> [2, C]: the per-channel max of |t| and its 99.9th
+    percentile over the tokens (`EncoderLayer(collect_absmax=True)`)."""
+    t32 = t.float().abs().reshape(-1, t.shape[-1])
+    return torch.stack([t32.amax(dim=0), _quantile(t32, 0.999)])
 
 
 class EncoderLayer(nn.Module):
-    """Pre-LN transformer layer: x += attn(LN(x)); x += ffn(LN(x))."""
+    """Pre-LN transformer layer: x += attn(LN(x)); x += ffn(LN(x)).
+
+    `act_scales` ({site: [C_site] f32}) selects static per-channel activation
+    scales (`quant="int8-static"`); `collect_absmax` also returns
+    {site: [2, C_site]} (`_absmax_stats`) for calibration. The `ctx` site is
+    NH * 128 wide with `fused_attention` (the head-padded context) and H wide
+    without."""
 
     def __init__(self, cfg: EmbedderConfig, generator, device):
         super().__init__()
         h, nh = cfg.hidden_size, cfg.num_heads
         dt = torch_dtype(cfg.dtype)
-        self.cfg, self.nh, self.hd = cfg, nh, h // nh
+        quant = cfg.quant != "none"
+        self.cfg, self.nh, self.hd, self.quant = cfg, nh, h // nh, quant
+        # hd^-0.5 in the compute dtype, as JAX multiplies by a weakly typed scalar
+        self.q_scale = float(torch.tensor(self.hd**-0.5).to(dt))
         self.attn_ln = _LNParams(h, device)
-        self.q_proj, self.k_proj, self.v_proj = (
-            HeadDense(h, nh, self.hd, 1, dt, generator, device) for _ in range(3)
-        )
-        self.out_proj = HeadDense(h, nh, self.hd, 0, dt, generator, device)
+        if cfg.fused_attention:
+            self.q_proj, self.k_proj, self.v_proj = (
+                HeadDense(h, nh, self.hd, 1, dt, generator, device, quant) for _ in range(3))
+            self.out_proj = HeadDense(h, nh, self.hd, 0, dt, generator, device, quant)
+        else:
+            self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
+                Dense(h, h, dt, generator, device, quant) for _ in range(4))
         self.ffn_ln = _LNParams(h, device)
-        self.ffn_in = nn.Linear(h, cfg.intermediate_size, device=device, dtype=dt)
-        self.ffn_out = nn.Linear(cfg.intermediate_size, h, device=device, dtype=dt)
-        for lin in (self.ffn_in, self.ffn_out):
-            _init_dense_(lin.weight, lin.in_features, generator)
-            nn.init.zeros_(lin.bias)
+        self.ffn_in = Dense(h, cfg.intermediate_size, dt, generator, device, quant)
+        self.ffn_out = Dense(cfg.intermediate_size, h, dt, generator, device, quant)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H] compute dtype
-        eps = self.cfg.layer_norm_eps
+    def forward(self, x: torch.Tensor, act_scales: dict | None = None,
+                collect_absmax: bool = False):  # x [B, T, H] in the compute dtype
+        cfg, nh, hd = self.cfg, self.nh, self.hd
+        if collect_absmax and not self.quant:
+            raise ValueError("collect_absmax calibrates the int8 activation-quantize sites; "
+                             "set quant to 'int8' or 'int8-static'")
+        absmax: dict = {}
+
+        def site(t: torch.Tensor, name: str):
+            if not self.quant:
+                return None
+            if collect_absmax:
+                absmax[name] = _absmax_stats(t)
+            if act_scales is not None:
+                # kept, so that the weight fold keyed on it is kept too
+                s = derived(self, name, lambda a: torch.clamp_min(a, 1e-12), act_scales[name])
+                return quantize_with_scale(t, s), None, s
+            return (*quantize_symmetric(t, dim=-1), None)
+
+        eps = cfg.layer_norm_eps
         y = self.attn_ln(x, eps)
-        q = self.q_proj(y) * self.hd**-0.5
-        ctx = attention(q, self.k_proj(y), self.v_proj(y), self.nh)
-        x = x + self.out_proj(ctx)
-        y = self.ffn_ln(x, eps).to(self.ffn_in.weight.dtype)
-        y = _gelu(self.ffn_in(y), self.cfg.gelu)
-        return x + self.ffn_out(y)
+        qkv = site(y, "qkv")
+        q = self.q_proj(y, qkv) * self.q_scale
+        k, v = self.k_proj(y, qkv), self.v_proj(y, qkv)
+        if cfg.fused_attention:
+            ctx = attention(q, k, v, nh)  # [B, T, NH * HDP]
+        else:
+            b, t = q.shape[:2]
+            heads = lambda z: z.reshape(b, t, nh, hd)  # noqa: E731
+            ctx = attention_reference(heads(q), heads(k), heads(v)).reshape(b, t, nh * hd)
+        x = x + self.out_proj(ctx, site(ctx, "ctx"))
+        y = self.ffn_ln(x, eps)
+        y = _gelu(self.ffn_in(y, site(y, "ffn_in")), cfg.gelu)
+        out = x + self.ffn_out(y, site(y, "ffn_out"))
+        return (out, absmax) if collect_absmax else out
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -239,12 +439,30 @@ class Wav2Vec2Encoder(nn.Module):
                 module.cfg = cfg
         return view
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def forward(self, wav: torch.Tensor, act_scales: dict | None = None,
+                calibrate: bool = False):
+        """`act_scales` ({site: [n_layers, C_site]}, `quant="int8-static"`)
+        are the calibrated static scales; `calibrate=True` returns
+        (features, {site: [n_layers, 2, C_site]}), the per-layer statistics
+        of `_absmax_stats`."""
+        if act_scales is not None and self.cfg.quant != "int8-static":
+            raise ValueError("act_scales only applies with quant='int8-static'")
         x = self.feature_projection(self.feature_encoder(wav))
         x = x + self.pos_conv(x)
         remat = self.cfg.remat and torch.is_grad_enabled() and x.requires_grad
-        for layer in self.layers:
-            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        stats = []
+        for i, layer in enumerate(self.layers):
+            scales = None if act_scales is None else {s: a[i] for s, a in act_scales.items()}
+            if calibrate:
+                x, absmax = layer(x, scales, collect_absmax=True)
+                stats.append(absmax)
+            elif remat:
+                x = checkpoint(layer, x, scales, use_reentrant=False)
+            else:
+                x = layer(x, scales)
         if self.final_ln is not None:
             x = self.final_ln(x, self.cfg.layer_norm_eps)
-        return x.float()
+        x = x.float()
+        if calibrate:
+            return x, {s: torch.stack([m[s] for m in stats]) for s in stats[0]}
+        return x

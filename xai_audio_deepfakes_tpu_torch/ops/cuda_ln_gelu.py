@@ -22,15 +22,28 @@ from xai_audio_deepfakes_tpu_torch.ops import _cuda
 from xai_audio_deepfakes_tpu_torch.ops._autograd import needs_grad, recompute_vjp
 
 
-def ln_gelu_from_f32(a32, scale, bias, eps: float, gelu: str, dtype) -> torch.Tensor:
-    """[B, C, L] f32 -> GELU(LN_C(a32)) in `dtype`, with the kernels' cast
-    points: f32 mean, centred f32 variance, rsqrt(var + eps), f32 scale and
-    bias, cast to `dtype`, then GELU in f32 from that value, cast back."""
+def supports_ln_gelu(c: int) -> bool:
+    """Where the JAX package takes its LN+GELU kernel
+    (`ops/pallas_ln_gelu.py::supports_ln_gelu`): a lane-aligned channel
+    count. The embedder takes kernel D's cast points exactly there."""
+    return c % 128 == 0
+
+
+def channel_layer_norm(a32, scale, bias, eps: float) -> torch.Tensor:
+    """[B, C, L] f32 -> LayerNorm over C in f32, as `_LNf32Stats` computes it
+    before its cast: f32 mean, centred f32 variance, rsqrt(var + eps), f32
+    scale and bias."""
     mu = a32.mean(dim=1, keepdim=True)
     xc = a32 - mu
     var = (xc * xc).mean(dim=1, keepdim=True)
-    normed = xc * torch.rsqrt(var + eps) * scale.float()[:, None] + bias.float()[:, None]
-    normed = normed.to(dtype).float()
+    return xc * torch.rsqrt(var + eps) * scale.float()[:, None] + bias.float()[:, None]
+
+
+def ln_gelu_from_f32(a32, scale, bias, eps: float, gelu: str, dtype) -> torch.Tensor:
+    """[B, C, L] f32 -> GELU(LN_C(a32)) in `dtype`, with the kernels' cast
+    points: `channel_layer_norm`, cast to `dtype`, then GELU in f32 from that
+    value, cast back."""
+    normed = channel_layer_norm(a32, scale, bias, eps).to(dtype).float()
     return F.gelu(normed, approximate="tanh" if gelu == "tanh" else "none").to(dtype)
 
 

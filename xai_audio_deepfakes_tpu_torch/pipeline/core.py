@@ -12,6 +12,11 @@ updates, in place.
 Every serving entry point runs under `torch.inference_mode()`. The stages
 the trainer differentiates through (`embed`, `stft_stage`, `istft_stage`)
 are the same code without that decorator.
+
+With `EmbedderConfig.quant="int8-static"` the pipeline holds the calibrated
+activation scales as its state (`quant_scales`, {site: [n_layers, C_site]}),
+set by `calibrate_quant` or `convert.load_quant_scales`; until then the
+embedder quantizes with dynamic per-token scales, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ class ADDvisorPipeline:
         self.encoder.requires_grad_(False)
         self.unet = init_unet_(UNetMaskDecoder(cfg.unet).to(self.device), gen).eval()
         self.logreg = logreg_init(cfg.embedder.hidden_size, gen, self.device)
+        self.quant_scales: dict | None = None
 
     def _as_input(self, wav) -> torch.Tensor:
         return torch.as_tensor(wav, dtype=torch.float32, device=self.device).contiguous()
@@ -81,7 +87,35 @@ class ADDvisorPipeline:
         """wav [B, L] on the device -> features [B, T, H] f32 (normalise,
         then embed), carrying a gradient to wav when it asks for one."""
         encoder = self.encoder if encoder is None else encoder
-        return encoder(zero_mean_unit_var_norm(wav))
+        static = self.cfg.embedder.quant == "int8-static"
+        return encoder(zero_mean_unit_var_norm(wav),
+                       act_scales=self.quant_scales if static else None)
+
+    @torch.inference_mode()
+    def calibrate_quant(self, wavs, batch_size: int = 16, stat: str = "p999") -> dict:
+        """Calibrate the static per-channel activation scales of the
+        embedder's int8 sites on representative clips, keep them as
+        `quant_scales` and return them ({site: [n_layers, C_site]}). Full
+        batches only, as in the JAX package: the element-wise maximum of the
+        batches' statistics, then `stat` / 127 with `stat` "max" (nothing in
+        the calibration set saturates) or "p999" (the 99.9th percentile of
+        each channel over the tokens: token-level outliers saturate, ordinary
+        tokens keep their resolution). Calibrate in the attention mode that
+        serves: the `ctx` site is NH * 128 wide with `fused_attention` and H
+        wide without."""
+        if self.cfg.embedder.quant not in ("int8", "int8-static"):
+            raise ValueError("calibrate_quant needs an int8 embedder config "
+                             f"(got quant={self.cfg.embedder.quant!r})")
+        idx = {"max": 0, "p999": 1}[stat]
+        wavs = self._as_input(wavs)
+        n = wavs.shape[0]
+        bs = min(batch_size, n)
+        absmax = None
+        for i in range(0, n - bs + 1, bs):
+            _, m = self.encoder(zero_mean_unit_var_norm(wavs[i:i + bs]), calibrate=True)
+            absmax = m if absmax is None else {k: torch.maximum(absmax[k], m[k]) for k in m}
+        self.quant_scales = {k: a[:, idx] / 127.0 for k, a in absmax.items()}
+        return self.quant_scales
 
     def stft_stage(self, wav: torch.Tensor):
         return stft_magnitude_phase(wav, self.cfg.stft)
@@ -127,7 +161,7 @@ class ADDvisorPipeline:
         embedder pass."""
         if decoder == "features":
             raise NotImplementedError(
-                'explain(decoder="features") is not ported yet (ROADMAP.md Queue 1 item 8)'
+                'explain(decoder="features") is not ported yet (ROADMAP.md Queue 1 item 5)'
             )
         if decoder != "unet":
             raise ValueError(f"unknown decoder {decoder!r}")
@@ -148,4 +182,4 @@ class ADDvisorPipeline:
         )
 
     def vocode(self, wav):
-        raise NotImplementedError("vocoding is not ported yet (ROADMAP.md Queue 1 item 10)")
+        raise NotImplementedError("vocoding is not ported yet (ROADMAP.md Queue 1 item 8)")

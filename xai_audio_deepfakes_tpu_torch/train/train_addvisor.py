@@ -42,9 +42,17 @@ from xai_audio_deepfakes_tpu_torch.train.checkpoints import load_checkpoint
 def _check_decoder(decoder: str) -> None:
     if decoder == "features":
         raise NotImplementedError(
-            'training decoder="features" is not ported yet (ROADMAP.md Queue 1 item 8)')
+            'training decoder="features" is not ported yet (ROADMAP.md Queue 1 item 5)')
     if decoder != "unet":
         raise ValueError(f"unknown decoder {decoder!r}")
+
+
+def _check_trainable(cfg: PipelineConfig, decoder: str) -> None:
+    _check_decoder(decoder)
+    if cfg.unet.dtype != "float32":
+        raise NotImplementedError(
+            "training the bf16 UNet (UNetConfig.dtype=bfloat16) is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
 
 
 def make_optimizers(cfg: PipelineConfig, decoder_params, w_raw: torch.Tensor):
@@ -80,7 +88,7 @@ class AddvisorTrainState:
 
 def init_train_state(pipe: ADDvisorPipeline, decoder: str = "unet") -> AddvisorTrainState:
     """A fresh state over the pipeline's own UNet (trained in place)."""
-    _check_decoder(decoder)
+    _check_trainable(pipe.cfg, decoder)
     w_raw = init_w_raw(pipe.cfg.loss, pipe.device)
     opt_model, opt_w = make_optimizers(pipe.cfg, pipe.unet.parameters(), w_raw)
     return AddvisorTrainState(pipe.unet, w_raw, opt_model, opt_w)
@@ -98,7 +106,7 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     A profiler passes `mark`: it is called with "collate", "forward",
     "backward" and "optimiser" as each of those phases has been enqueued.
     """
-    _check_decoder(decoder)
+    _check_trainable(pipe.cfg, decoder)
     cfg = pipe.cfg
     mark = mark or (lambda name: None)
     # The clean embed only produces the gradient-free target, so it may take
