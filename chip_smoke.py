@@ -13,9 +13,11 @@ PyTorch built for CUDA. It
     bodies of attention and conv+LN+GELU in the library's SASS
     (`cuobjdump -sass`), neither of which may be 0;
  3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
-    E conv+LayerNorm+GELU) against its plain PyTorch version at the main
-    path's shapes (8 clips, embedder batch 24), in f32 and in the working
-    dtype, each beside its tolerance, and times the kernel, the plain version
+    E conv+LayerNorm+GELU) against its plain PyTorch version at every batch
+    the driven paths give it (`EMBED_BATCHES`: embedder batches 2, 8, 16 and
+    24 for A, D and E; `SPEC_BATCHES`: 2 and 8 clips for B and C), in f32
+    and in the working dtype, each beside its tolerance, and times, at the
+    UNet explain's shapes (8 clips, embedder batch 24), the kernel, the plain version
     and one PyTorch library call that computes the same function (timed
     only; the port never calls it) by CUDA events; for every kernel also the
     device time per call of the kernel and of the library call from a
@@ -30,7 +32,9 @@ PyTorch built for CUDA. It
     library's), with ptxas' registers and spills of its instantiations;
  4. holds the backward of A, C, D and E (forward through the kernel, backward
     by recomputation) against autograd through the plain version, at the
-    training step's shapes (2 clips);
+    training step's shapes (2 clips), in f32 and, for A, D and E, in bf16 as
+    the attribution harness and the training step take it
+    (`check_backwards_bf16`);
  5. runs `ADDvisorPipeline.explain(decoder="unet")` at the full width of the
     XLS-R-2B truncation (bf16 embedder, default UNet) on 8 seeded clips with
     random weights from a seeded torch.Generator, checks shapes, finiteness
@@ -58,10 +62,34 @@ PyTorch built for CUDA. It
     configuration (with `quant_conv` and `UNetConfig.quant` once, and
     `fused_attention=False`) on the card against the CPU, at bars set by
     each configuration's own distance from the f32 port (`run_tiny_configs`);
- 9. prints the `kernels` JSON line and, last, the device line. A kernel's
-    `launches` are those of every driven path together (five explains and
-    the counted training steps), each path counted from zero and named in
-    `launches_by_path`; its `body` names the design that ran.
+ 9. runs `explain(decoder="features")` at full width, B=8, with both
+    frontends (A 18, B 1, C 2, D 14; or D 2, E 12), its stage split and
+    peak memory; `run_explanation_metrics` over 3 batches of 8 with each
+    decoder, its device fold against the float64 summary of the
+    probabilities (1e-5, relative above 1); each of the five attribution
+    methods through `run_attribution_metrics` at batch 2 (IG 8 steps,
+    SmoothGrad and GradientShap 4 samples; A 9 and D 7 per embedder
+    forward, finite non-zero maps), with ms per method; the harness's
+    saliency map twice, bit for bit equal (deterministic cuDNN), and the
+    drift of two saliency maps with cuDNN's default algorithms (printed);
+10. exports a seeded encoder as a HF checkpoint (weight-normed positional
+    conv, `wav2vec2.` prefix), writes it as a hand-made `model.safetensors`
+    (1.7 GB f32 at full width) and, at tiny width, as `pytorch_model.bin`,
+    imports it through `params_from_hf_dir` and `convert.load_encoder`, and
+    requires the explain to equal the source weights' bit for bit;
+11. prints how far the decoder gradients of two identical no-remat steps
+    drift with cuDNN's default algorithms, then, with its deterministic
+    ones, takes three training steps with remat off, "full" and "dots" (step ms,
+    peak memory, launches with the recomputed kernel A, the first step's
+    decoder gradients against remat off at 1e-3 of their scale), and one
+    feature-decoder step (A 27, B 1, C 2, D 3, E 18); and holds a tiny
+    feature-decoder explain (one attention block) and a tiny f32
+    `input_x_gradient` on the card against the CPU (mask 1e-5, waveforms
+    2e-4, probabilities 1e-4; the map 1e-3 of its largest magnitude);
+12. prints the `kernels` JSON line and, last, the device line. A kernel's
+    `launches` are those of every driven path together, each path counted
+    from zero and named in `launches_by_path`; its `body` names the design
+    that ran.
 
 Any failed phase exits non-zero without the last line. Without CUDA it exits
 1 before printing anything.
@@ -78,6 +106,12 @@ import time
 from pathlib import Path
 
 BATCH = 8  # clips per explain; the embedder runs 3 * BATCH
+# the batches the driven paths give the kernels, each held at all of them:
+# the embedder (A, D, E) runs at 2 (training steps, attribution), BATCH (the
+# feature decoder's clean embed), 2 * BATCH (its masked clips) and 3 * BATCH
+# (the UNet explain); the STFT and iSTFT (B, C) at 2 and BATCH
+EMBED_BATCHES = (2, BATCH, 2 * BATCH, 3 * BATCH)
+SPEC_BATCHES = (2, BATCH)
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over the
 # peak rate of its input type
@@ -189,28 +223,40 @@ def check_sass(lib_path: Path) -> None:
             fail(f"the bf16 {kernel} body has no tensor-core instruction")
 
 
-def check_attention(torch, cfg, rows: list) -> None:
-    from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain
-
-    e = cfg.embedder
-    b, t, nh, hd, hdp = 3 * BATCH, cfg.audio.num_frames(cfg.stft), e.num_heads, 120, 128
-    g = torch.Generator(device="cuda").manual_seed(1)
+def attention_inputs(torch, g, b: int, t: int, nh: int, hd: int, hdp: int, q_scale: float):
+    """Head-padded [b, t, nh * hdp] q, k, v in f32: N(0, 1) in the first hd
+    lanes of each head, exact zeros in the pad lanes, q times q_scale."""
     qkv = []
     for i in range(3):
         x = torch.zeros(b, t, nh, hdp, device="cuda")
         x[..., :hd] = torch.randn(b, t, nh, hd, device="cuda", generator=g)
         if i == 0:
-            x *= hd**-0.5
+            x *= q_scale
         qkv.append(x.reshape(b, t, nh * hdp))
-    errs = {}
-    for dt, atol, rtol in ((torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
-        q, k, v = (x.to(dt) for x in qkv)
-        out = attention(q, k, v, nh)
-        torch.cuda.synchronize()
-        errs[dt] = check_close(f"A attention {dt}", out, attention_plain(q, k, v, nh), atol, rtol)
-        pad = out.reshape(b, t, nh, hdp)[..., hd:]
-        if bool(pad.any()):
-            fail("A attention: pad lanes are not exactly zero")
+    return qkv
+
+
+def check_attention(torch, cfg, rows: list) -> None:
+    from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain
+
+    e = cfg.embedder
+    t, nh, hd, hdp = cfg.audio.num_frames(cfg.stft), e.num_heads, 120, 128
+    g = torch.Generator(device="cuda").manual_seed(1)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b in EMBED_BATCHES:
+        qkv = attention_inputs(torch, g, b, t, nh, hd, hdp, q_scale=hd**-0.5)
+        for dt, atol, rtol in ((torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
+            q, k, v = (x.to(dt) for x in qkv)
+            out = attention(q, k, v, nh)
+            torch.cuda.synchronize()
+            errs[dt] = max(errs[dt], check_close(f"A attention {dt} batch {b}", out,
+                                                 attention_plain(q, k, v, nh), atol, rtol))
+            pad = out.reshape(b, t, nh, hdp)[..., hd:]
+            if bool(pad.any()):
+                fail(f"A attention: pad lanes are not exactly zero at batch {b}")
+            del out
+    # timed at the UNet explain's batch (the loop's last)
+    b = EMBED_BATCHES[-1]
     q, k, v = (x.to(torch.bfloat16) for x in qkv)
     heads = lambda x: x.reshape(b, t, nh, hdp).transpose(1, 2)  # noqa: E731
     qh, kh, vh = heads(q).contiguous(), heads(k).contiguous(), heads(v).contiguous()
@@ -245,11 +291,26 @@ def check_stft(torch, cfg, rows: list) -> None:
 
     sc, n = cfg.stft, cfg.audio.num_samples
     g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(BATCH, n, device="cuda", generator=g) * 0.3
-    re, im = stft(x, sc)
-    torch.cuda.synchronize()
-    re_p, im_p = stft_plain(x, sc)
-    err = max(check_close("B stft re", re, re_p, 2e-4), check_close("B stft im", im, im_p, 2e-4))
+    err = err_c = 0.0
+    for b in SPEC_BATCHES:  # the loop's last, BATCH, is timed
+        x = torch.randn(b, n, device="cuda", generator=g) * 0.3
+        re, im = stft(x, sc)
+        torch.cuda.synchronize()
+        re_p, im_p = stft_plain(x, sc)
+        err = max(err, check_close(f"B stft re batch {b}", re, re_p, 2e-4),
+                  check_close(f"B stft im batch {b}", im, im_p, 2e-4))
+        mask = torch.rand(re.shape, device="cuda", generator=g)
+        re_m, im_m = (re_p * mask).contiguous(), (im_p * mask).contiguous()
+        y = istft(re_m, im_m, sc, n)
+        torch.cuda.synchronize()
+        err_c = max(err_c, check_close(f"C istft batch {b}", y, istft_plain(re_m, im_m, sc, n),
+                                       2e-4))
+        # randn spectra, as a gradient's: Im[0] and Im[M] non-zero, which the
+        # plain version's bases ignore
+        re_r, im_r = (torch.randn(re.shape, device="cuda", generator=g) for _ in range(2))
+        err_c = max(err_c, check_close(f"C istft, randn spectra, batch {b}",
+                                       istft(re_r, im_r, sc, n),
+                                       istft_plain(re_r, im_r, sc, n), 2e-4))
     t = re.shape[-1]
     win = device_constant("window", x.device, sc.window, sc.win_length, sc.n_fft)
     def stft_lib():
@@ -271,16 +332,6 @@ def check_stft(torch, cfg, rows: list) -> None:
                      body="radix-8 Stockham FFT of the even/odd-packed frame in shared memory, "
                      "split step, reflect pad folded into the read"))
 
-    mask = torch.rand(re.shape, device="cuda", generator=g)
-    re_m, im_m = (re_p * mask).contiguous(), (im_p * mask).contiguous()
-    y = istft(re_m, im_m, sc, n)
-    torch.cuda.synchronize()
-    err = check_close("C istft", y, istft_plain(re_m, im_m, sc, n), 2e-4)
-    # randn spectra, as a gradient's: Im[0] and Im[M] non-zero, which the
-    # plain version's bases ignore
-    re_r, im_r = (torch.randn(re.shape, device="cuda", generator=g) for _ in range(2))
-    err = max(err, check_close("C istft, randn spectra", istft(re_r, im_r, sc, n),
-                               istft_plain(re_r, im_r, sc, n), 2e-4))
     spec = torch.complex(re_m, im_m)
     def istft_lib():
         return torch.istft(spec, sc.n_fft, sc.hop_length, sc.n_fft, win, center=True, length=n)
@@ -291,7 +342,7 @@ def check_stft(torch, cfg, rows: list) -> None:
     bnd, by = bound_ms(nbytes, ops + 2 * BATCH * n, "float32")
     rows.append(dict(name="istft", route="cuda", source="xai_audio_deepfakes_tpu_torch/csrc/istft.cu",
                      replaces="xai_audio_deepfakes_tpu/ops/pallas_stft.py:210",
-                     max_abs_err=err, ms=time_ms(lambda: istft(re_m, im_m, sc, n)),
+                     max_abs_err=err_c, ms=time_ms(lambda: istft(re_m, im_m, sc, n)),
                      plain_ms=time_ms(lambda: istft_plain(re_m, im_m, sc, n)),
                      bound_ms=bnd, bound_by=by, library_ms=lib,
                      shape=[BATCH, sc.num_bins, t], dtype="float32",
@@ -348,34 +399,40 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
     from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu_, ln_gelu_plain
 
     e = cfg.embedder
-    b, c, eps = 3 * BATCH, e.conv_dim[0], e.layer_norm_eps
+    c, eps = e.conv_dim[0], e.layer_norm_eps
     g = torch.Generator(device="cuda").manual_seed(3)
     scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)
     bias = 0.1 * torch.randn(c, device="cuda", generator=g)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_share = flip_share = 0.0
+    # the persistent blocks split the tiles by batch: every batch of the paths
+    for b in EMBED_BATCHES:
+        for length in frontend_lengths(cfg):
+            x32 = torch.randn(b, c, length, device="cuda", generator=g) * 2.0 + 0.5
+            for dt, atol, rtol in ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
+                x = x32.to(dt)
+                for form in ("exact", "tanh"):
+                    out = ln_gelu_(x.clone(), scale, bias, eps, form)
+                    torch.cuda.synchronize()
+                    want = ln_gelu_plain(x, scale, bias, eps, form)
+                    errs[dt] = max(errs[dt], check_close(
+                        f"D ln_gelu {dt} {form} batch {b} L={length}", out, want, atol, rtol))
+                    if dt == torch.bfloat16:
+                        steps = bf16_steps(torch, out, want)
+                        share = float((steps > 1).float().mean())
+                        worst_share = max(worst_share, share)
+                        flip_share = max(flip_share, float((steps > 0).float().mean()))
+                        if share > 1e-3:
+                            fail(f"D ln_gelu: {share:.2e} of the elements are more than one "
+                                 f"bf16 step off (batch {b}, L={length})")
+                    del out, want
+            del x32, x
+    # timed at the UNet explain's batch
+    b = EMBED_BATCHES[-1]
     plain = lib = lib_dev = 0.0
     by_layer, dev_by_layer, gbs_by_layer, lib_dev_by_layer = [], [], [], []
     for length in frontend_lengths(cfg):
-        x32 = torch.randn(b, c, length, device="cuda", generator=g) * 2.0 + 0.5
-        for dt, atol, rtol in ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
-            x = x32.to(dt)
-            for form in ("exact", "tanh"):
-                out = ln_gelu_(x.clone(), scale, bias, eps, form)
-                torch.cuda.synchronize()
-                want = ln_gelu_plain(x, scale, bias, eps, form)
-                errs[dt] = max(errs[dt], check_close(
-                    f"D ln_gelu {dt} {form} L={length}", out, want, atol, rtol))
-                if dt == torch.bfloat16:
-                    steps = bf16_steps(torch, out, want)
-                    share = float((steps > 1).float().mean())
-                    worst_share = max(worst_share, share)
-                    flip_share = max(flip_share, float((steps > 0).float().mean()))
-                    if share > 1e-3:
-                        fail(f"D ln_gelu: {share:.2e} of the elements are more than one bf16 step off")
-                del out, want
-        x = x32.to(torch.bfloat16)
-        del x32
+        x = (torch.randn(b, c, length, device="cuda", generator=g) * 2.0 + 0.5).to(torch.bfloat16)
         work = x.clone()
         by_layer.append(time_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu), iters=5))
         dev_by_layer.append(kernel_device_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu),
@@ -439,7 +496,7 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
     from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
 
     e = cfg.embedder
-    b, c, eps = 3 * BATCH, e.conv_dim[0], e.layer_norm_eps
+    c, eps = e.conv_dim[0], e.layer_norm_eps
     g = torch.Generator(device="cuda").manual_seed(4)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     ms = plain = lib = ops = nbytes = dev = lib_dev = 0.0
@@ -454,26 +511,32 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
     # bf16 steps in all (4 * 2^-7 = 3.2e-2 of |y|). Such elements are rare:
     # at most 0.1% may differ by more than one step (1e-2 + 1e-2 |y|).
     tolerances = ((torch.float32, 2e-5, 0.0), (torch.bfloat16, 1e-2, 3.2e-2))
+    for b in EMBED_BATCHES:
+        for layer in range(1, len(lengths)):
+            k, l_in, l_out = e.conv_kernel[layer], lengths[layer - 1], lengths[layer]
+            for dt, atol, rtol in tolerances:
+                x, w, cb, scale, bias = conv_inputs(torch, g, dt, k, l_in, b, c)
+                out = conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu)
+                torch.cuda.synchronize()
+                if tuple(out.shape) != (b, c, l_out):
+                    fail(f"E conv_ln_gelu: output {tuple(out.shape)}, want {(b, c, l_out)}")
+                want = conv_ln_gelu_plain(x, w, cb, scale, bias, eps, e.gelu)
+                errs[dt] = max(errs[dt], check_close(
+                    f"E conv_ln_gelu {dt} batch {b} k={k} L={l_in}", out, want, atol, rtol))
+                if dt == torch.bfloat16:
+                    off = (out.float() - want.float()).abs() > 1e-2 + 1e-2 * want.float().abs()
+                    share = float(off.float().mean())
+                    worst_share = max(worst_share, share)
+                    print(f"    more than one bf16 step off: {share:.2e} of the elements "
+                          "(at most 1e-3)")
+                    if share > 1e-3:
+                        fail("E conv_ln_gelu: too many elements are more than one bf16 step off")
+                del out, want, x, w
+    # timed at the UNet explain's batch
+    b = EMBED_BATCHES[-1]
     for layer in range(1, len(lengths)):
         k, l_in, l_out = e.conv_kernel[layer], lengths[layer - 1], lengths[layer]
-        for dt, atol, rtol in tolerances:
-            x, w, cb, scale, bias = conv_inputs(torch, g, dt, k, l_in, b, c)
-            out = conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu)
-            torch.cuda.synchronize()
-            if tuple(out.shape) != (b, c, l_out):
-                fail(f"E conv_ln_gelu: output {tuple(out.shape)}, want {(b, c, l_out)}")
-            want = conv_ln_gelu_plain(x, w, cb, scale, bias, eps, e.gelu)
-            errs[dt] = max(errs[dt], check_close(
-                f"E conv_ln_gelu {dt} k={k} L={l_in}", out, want, atol, rtol))
-            if dt == torch.bfloat16:
-                off = (out.float() - want.float()).abs() > 1e-2 + 1e-2 * want.float().abs()
-                share = float(off.float().mean())
-                worst_share = max(worst_share, share)
-                print(f"    more than one bf16 step off: {share:.2e} of the elements (at most 1e-3)")
-                if share > 1e-3:
-                    fail("E conv_ln_gelu: too many elements are more than one bf16 step off")
-            del out, want
-        # x, w, ... are now the bf16 inputs of this layer
+        x, w, cb, scale, bias = conv_inputs(torch, g, torch.bfloat16, k, l_in, b, c)
         by_layer.append(time_ms(lambda: conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu),
                                 iters=5, warmup=1))
         ms += by_layer[-1]
@@ -562,21 +625,68 @@ def check_backwards(torch, cfg) -> None:
                         1e-4 * float(want.abs().max()))
 
 
-def stage_split(torch, pipe, wav) -> dict:
-    """Device ms of each stage of one explain on its own (CUDA events, 5
-    calls after a warm-up): spectrogram, predict_mask, masking and the two
-    iSTFTs, and the 3B-batch embedder as frontend, projection + positional
-    conv, and the transformer layers (with the calibrated scales under
-    int8-static)."""
-    from xai_audio_deepfakes_tpu_torch.ops.masking import apply_mask, remask_complex
+def check_backwards_bf16(torch, cfg) -> None:
+    """The bf16 gradients of A, D and E at the batch that the attribution
+    harness and the training step differentiate (2 clips, the kernel
+    launched in the forward). Each backward recomputes from the saved bf16
+    inputs: A forms dq, dk and dv in f32 (`attention_backward`), D and E run
+    autograd through their plain versions. The reference takes the same
+    inputs and the same seeded upstream gradient: autograd through A's plain
+    version on the inputs widened to f32 (where its cast points are exact),
+    through D's and E's plain versions in bf16. Bar: 1e-4 of the gradient's
+    largest magnitude, as in `check_backwards` (f32 sums in another order),
+    plus one bf16 step (2^-7 of the value) for the gradient's rounding. The
+    forward outputs are held at the forward checks' bars."""
+    from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu, ln_gelu_plain
+
+    e, bf16 = cfg.embedder, torch.bfloat16
+    b, t, nh, eps = EMBED_BATCHES[0], cfg.audio.num_frames(cfg.stft), e.num_heads, e.layer_norm_eps
+    lengths = frontend_lengths(cfg)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    qkv = [x.to(bf16) for x in attention_inputs(torch, g, b, t, nh, 120, 128, q_scale=120**-0.5)]
+    x0 = (torch.randn(b, e.conv_dim[0], lengths[0], device="cuda", generator=g) * 2.0
+          + 0.5).to(bf16)
+    ln_affine = [1.0 + 0.1 * torch.randn(e.conv_dim[0], device="cuda", generator=g),
+                 0.1 * torch.randn(e.conv_dim[0], device="cuda", generator=g)]
+    conv = list(conv_inputs(torch, g, bf16, e.conv_kernel[1], lengths[0], b, e.conv_dim[0]))
+    cases = (  # name, inputs, kernel route, reference, forward rtol, widen to f32
+        ("A attention", qkv, lambda q, k, v: attention(q, k, v, nh),
+         lambda q, k, v: attention_plain(q, k, v, nh), 1e-2, True),
+        ("D ln_gelu", [x0, *ln_affine], lambda x, s, bi: ln_gelu(x, s, bi, eps, e.gelu),
+         lambda x, s, bi: ln_gelu_plain(x, s, bi, eps, e.gelu), 1e-2, False),
+        ("E conv_ln_gelu", conv, lambda *a: conv_ln_gelu(*a, eps, e.gelu),
+         lambda *a: conv_ln_gelu_plain(*a, eps, e.gelu), 3.2e-2, False),
+    )
+    for name, tensors, fn, plain, fwd_rtol, widen in cases:
+        leaves = [x.detach().clone().requires_grad_() for x in tensors]
+        out = fn(*leaves)
+        gy = torch.randn(out.shape, device="cuda", generator=g).to(out.dtype)
+        got = torch.autograd.grad(out, leaves, gy)
+        ref_leaves = [(x.float() if widen else x).detach().clone().requires_grad_()
+                      for x in tensors]
+        ref_out = plain(*ref_leaves)
+        want = torch.autograd.grad(ref_out, ref_leaves, gy.to(ref_out.dtype))
+        check_close(f"{name} bf16 forward under autograd, batch {b}", out.detach(),
+                    ref_out.detach().to(out.dtype), 1e-2, fwd_rtol)
+        for i, (gi, wi) in enumerate(zip(got, want)):
+            if gi.dtype != tensors[i].dtype:
+                fail(f"{name} bf16 backward: input {i}'s gradient is {gi.dtype}")
+            check_close(f"{name} bf16 backward, batch {b}, input {i}", gi.float(), wi.float(),
+                        1e-4 * float(wi.abs().max()), 2.0**-7)
+
+
+def embedder_split(torch, pipe, wavs, prefix: str) -> dict:
+    """Device ms of the embedder's stages on the clips `wavs` (CUDA events,
+    5 calls): frontend, projection + positional conv, and the transformer
+    layers (with the calibrated scales under int8-static)."""
     from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
 
     enc, cfg = pipe.encoder, pipe.cfg
     static = cfg.embedder.quant == "int8-static" and pipe.quant_scales is not None
     with torch.inference_mode():
-        out = pipe.explain(wav)
-        _, _, mag, phase = pipe.spectrogram(wav)
-        norm = zero_mean_unit_var_norm(torch.cat([wav, out.relevant_wav, out.irrelevant_wav]))
+        norm = zero_mean_unit_var_norm(wavs)
         fe = enc.feature_encoder(norm)
         proj = enc.feature_projection(fe)
         x = proj + enc.pos_conv(proj)
@@ -585,6 +695,25 @@ def stage_split(torch, pipe, wav) -> dict:
             y = x
             for i, layer in enumerate(enc.layers):
                 y = layer(y, {k: v[i] for k, v in pipe.quant_scales.items()} if static else None)
+
+        return {
+            f"{prefix}frontend": time_ms(lambda: enc.feature_encoder(norm), iters=5),
+            f"{prefix}projection + pos conv": time_ms(
+                lambda: proj + enc.pos_conv(enc.feature_projection(fe)), iters=5),
+            f"{prefix}{len(enc.layers)} layers": time_ms(layers, iters=5),
+        }
+
+
+def stage_split(torch, pipe, wav) -> dict:
+    """Device ms of each stage of one explain on its own (CUDA events, 5
+    calls after a warm-up): spectrogram, predict_mask, masking and the two
+    iSTFTs, and the 3B-batch embedder by `embedder_split`."""
+    from xai_audio_deepfakes_tpu_torch.ops.masking import apply_mask, remask_complex
+
+    cfg = pipe.cfg
+    with torch.inference_mode():
+        out = pipe.explain(wav)
+        _, _, mag, phase = pipe.spectrogram(wav)
 
         def masked_istfts():
             rel, irr = apply_mask(out.mask, mag, cfg.masking)
@@ -596,27 +725,70 @@ def stage_split(torch, pipe, wav) -> dict:
             "spectrogram": time_ms(lambda: pipe.spectrogram(wav), iters=5),
             unet: time_ms(lambda: pipe.predict_mask(mag), iters=5),
             "masking + 2 iSTFT": time_ms(masked_istfts, iters=5),
-            "embedder: frontend": time_ms(lambda: enc.feature_encoder(norm), iters=5),
-            "embedder: projection + pos conv": time_ms(
-                lambda: proj + enc.pos_conv(enc.feature_projection(fe)), iters=5),
-            f"embedder: {len(enc.layers)} layers": time_ms(layers, iters=5),
+            **embedder_split(torch, pipe, torch.cat([wav, out.relevant_wav, out.irrelevant_wav]),
+                             "embedder: "),
         }
 
 
-def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool = False):
-    """One counted explain at full width and `reps` timed ones; returns the
-    launch counts and the three probabilities of every clip. Under
-    int8-static the pipeline is first calibrated on 16 seeded clips; with
-    `split` the stage split of `stage_split` is printed."""
-    import numpy as np
+def stage_split_features(torch, pipe, wav) -> dict:
+    """Device ms of each stage of one feature-decoder explain on its own
+    (CUDA events, 5 calls after a warm-up): spectrogram, the clean embed at
+    batch B, the feature decoder, masking and the two iSTFTs, and the
+    2B-batch embed of the masked clips with the LogReg head; then both
+    embeds by `embedder_split`."""
+    from xai_audio_deepfakes_tpu_torch.ops.masking import apply_mask, remask_complex
 
-    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    cfg = pipe.cfg
+    with torch.inference_mode():
+        out = pipe.explain(wav, decoder="features")
+        _, _, mag, phase = pipe.spectrogram(wav)
+        feats = pipe.features(wav)
+        both = torch.cat([out.relevant_wav, out.irrelevant_wav])
+
+        def masked_istfts():
+            rel, irr = apply_mask(out.mask, mag, cfg.masking)
+            pipe.istft(*remask_complex(rel, phase))
+            pipe.istft(*remask_complex(irr, phase))
+
+        return {
+            "spectrogram": time_ms(lambda: pipe.spectrogram(wav), iters=5),
+            "embed clean (B)": time_ms(lambda: pipe.features(wav), iters=5),
+            f"feature decoder ({cfg.feat_decoder.dtype})": time_ms(
+                lambda: pipe.predict_mask_from_features(feats, mag), iters=5),
+            "masking + 2 iSTFT": time_ms(masked_istfts, iters=5),
+            "embed relevant + irrelevant (2B) + LogReg": time_ms(lambda: pipe.classify(both),
+                                                                  iters=5),
+            **embedder_split(torch, pipe, wav, "clean embed (B): "),
+            **embedder_split(torch, pipe, both, "2B embed: "),
+        }
+
+
+def build_pipeline(torch, cfg, seed: int = 0):
     from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 
     t0 = time.perf_counter()
-    pipe = ADDvisorPipeline(cfg, device="cuda", seed=0)
+    pipe = ADDvisorPipeline(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
     print(f"pipeline built with random weights in {time.perf_counter() - t0:.1f} s")
+    return pipe
+
+
+def launches_of(a: int = 0, b: int = 0, c: int = 0, d: int = 0, e: int = 0) -> dict:
+    return {"attention": a, "stft": b, "istft": c, "ln_gelu": d, "conv_ln_gelu": e}
+
+
+def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool = False,
+                decoder: str = "unet", pipe=None):
+    """One counted explain at full width and `reps` timed ones; returns the
+    launch counts and the three probabilities of every clip. Under
+    int8-static the pipeline is first calibrated on 16 seeded clips; with
+    `split` the stage split of `stage_split` (or, with the feature decoder,
+    `stage_split_features`) is printed."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    pipe = pipe or build_pipeline(torch, cfg)
     if cfg.embedder.quant == "int8-static":
         calib = np.random.default_rng(2).standard_normal((16, cfg.audio.num_samples)) * 0.1
         calib = torch.from_numpy(calib.astype(np.float32)).cuda()
@@ -633,13 +805,13 @@ def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool =
             fail("calibrate_quant gave a scale that is negative or not finite")
     wav = np.random.default_rng(0).standard_normal((BATCH, cfg.audio.num_samples)).astype(np.float32) * 0.1
     wav_t = torch.from_numpy(wav).cuda()
-    pipe.explain(wav_t)  # warm-up
+    pipe.explain(wav_t, decoder=decoder)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    out = pipe.explain(wav_t)
+    out = pipe.explain(wav_t, decoder=decoder)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
@@ -664,19 +836,22 @@ def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool =
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        pipe.explain(wav_t)
+        pipe.explain(wav_t, decoder=decoder)
     torch.cuda.synchronize()
     steady = (time.perf_counter() - t0) / reps
     e, u = cfg.embedder, cfg.unet
     name = name or f"fused_conv={e.fused_conv}"
+    mask_decoder = f"UNet {u.dtype}" if decoder == "unet" else (
+        f"feature decoder {cfg.feat_decoder.dtype}")
     print(f"explain B={BATCH} {name} (embedder {e.dtype}, quant {e.quant}, gelu {e.gelu}, "
-          f"fused_ln_gelu {e.fused_ln_gelu}, fused_conv {e.fused_conv}; UNet {u.dtype}): "
+          f"fused_ln_gelu {e.fused_ln_gelu}, fused_conv {e.fused_conv}; {mask_decoder}): "
           f"counted run {first * 1e3:.1f} ms, steady {steady * 1e3:.1f} ms, "
           f"{BATCH / steady:.2f} clips/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if split:
+        fn = stage_split if decoder == "unet" else stage_split_features
         print(f"  stage split ({name}), device ms: " + json.dumps(
-            {k: round(v, 3) for k, v in stage_split(torch, pipe, wav_t).items()}))
+            {k: round(v, 3) for k, v in fn(torch, pipe, wav_t).items()}))
     probs = torch.cat([out.probs_clean, out.probs_relevant, out.probs_irrelevant])
     return launches, probs.flatten().cpu()
 
@@ -939,6 +1114,477 @@ def run_tiny_training(torch) -> None:
     check_close("tiny train w_raw", w_g, w_c, 1e-5)
 
 
+def lmac_summary_f64(p, rel, irr) -> dict:
+    """The five LMAC metrics' means over all clips, in float64 numpy: the
+    plain reference of the harness's device fold."""
+    import numpy as np
+
+    p, rel, irr = (np.asarray(a, np.float64).ravel() for a in (p, rel, irr))
+    pc, oc = (np.where(x > 0.5, x, 1.0 - x) for x in (p, rel))
+    return {
+        "faithfulness": float(np.mean((p - irr) * np.sign(p - 0.5))),
+        "fidelity": float(np.mean((p > 0.5) == (rel > 0.5))),
+        "average_drop": float(np.mean(np.maximum(pc - oc, 0.0) / (pc + 1e-10) * 100.0)),
+        "average_increase": float(np.mean((oc > pc) * 100.0)),
+        "average_gain": float(np.mean(np.maximum(oc - pc, 0.0) / (1.0 - pc + 1e-10) * 100.0)),
+    }
+
+
+def run_eval(torch, pipe, decoder: str, per_explain: dict) -> dict:
+    """`run_explanation_metrics` over 3 batches of BATCH seeded clips; the
+    device fold must equal `lmac_summary_f64` over the concatenated
+    probabilities (each batch explained again) within 1e-5, relative
+    above 1. Returns the sweep's launches (3 explains')."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_explanation_metrics
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(3)
+    n = pipe.cfg.audio.num_samples
+    batches = [(rng.standard_normal((BATCH, n)) * 0.1).astype(np.float32) for _ in range(3)]
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = run_explanation_metrics(pipe, batches, decoder=decoder)
+    seconds = time.perf_counter() - t0  # the fold's host copy waits for the device
+    launches = dict(_cuda.LAUNCHES)
+    want = {k: 3 * v for k, v in per_explain.items()}
+    print(f"eval harness, decoder={decoder}, 3 batches of {BATCH}: {seconds * 1e3:.1f} ms, "
+          f"launches {launches}, result {json.dumps(result)}")
+    if launches != want:
+        fail(f"eval harness ({decoder}): launch counts {launches} != {want}")
+    cols = []
+    with torch.inference_mode():
+        for wav in batches:
+            out = pipe.explain(wav, decoder=decoder)
+            cols.append([getattr(out, k).double().cpu().numpy() for k in
+                         ("probs_clean", "probs_relevant", "probs_irrelevant")])
+    ref = lmac_summary_f64(*(np.concatenate([c[i] for c in cols]) for i in range(3)))
+    if result["num_clips"] != 3 * BATCH:
+        fail(f"eval harness ({decoder}): num_clips {result['num_clips']}")
+    for key, want_v in ref.items():
+        err = abs(result[key] - want_v)
+        bar = 1e-5 * max(1.0, abs(want_v))
+        print(f"  {key}: device fold {result[key]!r}, float64 {want_v!r}, |diff| {err:.2e} "
+              f"(bar {bar:.1e}) {'ok' if err <= bar else 'FAIL'}")
+        if not err <= bar:
+            fail(f"eval harness ({decoder}): {key} disagrees with the float64 summary")
+    return launches
+
+
+ATTRIBUTION_CASES = {  # method: (keyword arguments, gradient evaluations)
+    "saliency": ({}, 1),
+    "input_x_gradient": ({}, 1),
+    "integrated_gradients": ({"steps": 8}, 8),
+    "smoothgrad": ({"samples": 4}, 4),
+    "gradient_shap": ({"samples": 4}, 4),
+}
+
+
+def run_attribution(torch, pipe) -> dict:
+    """Each attribution method through `run_attribution_metrics` on one
+    batch of 2 seeded clips at full width; per method the ms, the launches
+    (A n_layers and D n_conv per embedder forward: one per gradient
+    evaluation and three `classify` calls) and a finite, non-zero map.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_attribution_metrics
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    e = pipe.cfg.embedder
+    wav = (np.random.default_rng(5).standard_normal((2, pipe.cfg.audio.num_samples))
+           * 0.1).astype(np.float32)
+    run_attribution_metrics(pipe, [wav], method="saliency")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paths = {}
+    for method, (kw, evals) in ATTRIBUTION_CASES.items():
+        seen = []
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        result = run_attribution_metrics(pipe, [wav], method=method,
+                                         artifact_fn=lambda *a: seen.append(a), **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_cuda.LAUNCHES)
+        forwards = evals + 3
+        want = launches_of(a=e.num_layers * forwards, d=len(e.conv_dim) * forwards)
+        mask = torch.from_numpy(seen[0][1])
+        print(f"attribution {method} {kw} at batch 2: {ms:.1f} ms, launches {launches}, "
+              f"mask max {float(mask.max()):.3f}, result {json.dumps(result)}")
+        if launches != want:
+            fail(f"attribution {method}: launch counts {launches} != {want}")
+        if not bool(torch.isfinite(mask).all()) or not float(mask.abs().max()) > 0:
+            fail(f"attribution {method}: the map is not finite or is zero")
+        paths[f"attribution_{method}"] = launches
+    print(f"attribution peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_attribution_reproducible(torch, pipe, wav)
+    return paths
+
+
+def check_attribution_reproducible(torch, pipe, wav) -> None:
+    """The harness's saliency map twice: equal bit for bit, since its
+    gradients take cuDNN's deterministic algorithms. The same gradient
+    twice with cuDNN's default algorithms is printed beside it (measured,
+    no bar): how far two runs may drift without that."""
+    from xai_audio_deepfakes_tpu_torch.attrib.methods import saliency
+    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_attribution_metrics
+    from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply
+
+    maps = []
+    for _ in range(2):
+        run_attribution_metrics(pipe, [wav], method="saliency",
+                                artifact_fn=lambda *a: maps.append(a[1]))
+    same = bool((maps[0] == maps[1]).all())
+    print(f"attribution saliency twice through the harness: maps bit for bit "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail("attribution: two identical sweeps gave different maps")
+    x = pipe._as_input(wav)
+
+    def score(w):
+        return logreg_apply(pipe.logreg, pipe.embed(w).mean(dim=1))[0]
+
+    if torch.backends.cudnn.deterministic:
+        fail("cuDNN's deterministic algorithms are still on after the harness")
+    grads = [saliency(score, x) for _ in range(2)]
+    spread = float((grads[0] - grads[1]).abs().max()) / float(grads[1].abs().max())
+    print(f"attribution saliency twice with cuDNN's default algorithms: the maps differ by "
+          f"{spread:.3e} of their largest magnitude (measured, no bar)")
+
+
+def hf_state_dict(torch, enc, seed: int) -> dict:
+    """A port encoder's weights as a HF `Wav2Vec2Model` checkpoint (numpy
+    f32, every key under the `wav2vec2.` prefix): the inverse of
+    `params_from_hf_state_dict` + `convert.load_encoder`, with the q/k/v/out
+    head padding removed and the positional conv in weight-norm form
+    (`weight_g` seeded away from |v|, `weight_v` the weight)."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import HeadDense
+
+    def a(t):  # a copy: the source's parameters change after the export
+        return np.array(t.detach().float().cpu().numpy())
+
+    def dense(d):
+        w, b = d.weight, d.bias
+        if isinstance(d, HeadDense) and d.pad_axis == 1:
+            w = w.view(d.nh, d.hdp, -1)[:, :d.hd].reshape(d.nh * d.hd, -1)
+            b = b.view(d.nh, d.hdp)[:, :d.hd].reshape(-1)
+        elif isinstance(d, HeadDense):
+            w = w.view(w.shape[0], d.nh, d.hdp)[:, :, :d.hd].reshape(w.shape[0], -1)
+        return a(w), a(b)
+
+    sd = {}
+
+    def put(prefix, weight, bias):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = weight, bias
+
+    for i, blk in enumerate(enc.feature_encoder.conv_layers):
+        pre = f"feature_extractor.conv_layers.{i}"
+        sd[f"{pre}.conv.weight"] = a(blk.conv.weight)
+        if blk.conv.bias is not None:
+            sd[f"{pre}.conv.bias"] = a(blk.conv.bias)
+        put(f"{pre}.layer_norm", a(blk.layer_norm.weight), a(blk.layer_norm.bias))
+    fp = enc.feature_projection
+    put("feature_projection.layer_norm", a(fp.layer_norm.weight), a(fp.layer_norm.bias))
+    put("feature_projection.projection", *dense(fp.projection))
+    pc = enc.pos_conv.conv
+    k = pc.weight.shape[-1]
+    sd["encoder.pos_conv_embed.conv.weight_g"] = (
+        np.random.default_rng(seed).uniform(0.5, 1.5, (1, 1, k)).astype(np.float32))
+    sd["encoder.pos_conv_embed.conv.weight_v"] = a(pc.weight)
+    sd["encoder.pos_conv_embed.conv.bias"] = a(pc.bias)
+    for i, layer in enumerate(enc.layers):
+        pre = f"encoder.layers.{i}"
+        put(f"{pre}.layer_norm", a(layer.attn_ln.weight), a(layer.attn_ln.bias))
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(f"{pre}.attention.{name}", *dense(getattr(layer, name)))
+        put(f"{pre}.final_layer_norm", a(layer.ffn_ln.weight), a(layer.ffn_ln.bias))
+        put(f"{pre}.feed_forward.intermediate_dense", *dense(layer.ffn_in))
+        put(f"{pre}.feed_forward.output_dense", *dense(layer.ffn_out))
+    h = enc.cfg.hidden_size
+    put("encoder.layer_norm", np.ones(h, np.float32), np.zeros(h, np.float32))
+    return {f"wav2vec2.{k}": v for k, v in sd.items()}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """The `.safetensors` format by hand, every tensor F32: an 8-byte
+    little-endian header length, the JSON header (padded to 8 bytes), the
+    raw little-endian data."""
+    import numpy as np
+
+    header, offset = {}, 0
+    arrays = {k: np.ascontiguousarray(v, dtype="<f4") for k, v in tensors.items()}
+    for name, arr in arrays.items():
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for arr in arrays.values():
+            arr.tofile(f)
+
+
+def run_hf_import(torch, cfg, clips: int, fmt: str, name: str) -> dict:
+    """Export a seeded pipeline's encoder as a HF checkpoint
+    (`hf_state_dict`), write it as `model.safetensors` (`write_safetensors`)
+    or `pytorch_model.bin` into a temporary directory, import it into a
+    pipeline of another seed through `params_from_hf_dir` and
+    `convert.load_encoder`, and require the explain of `clips` seeded clips
+    to equal the source's bit for bit. The source first takes the
+    weight-norm positional conv it exports (`_wn_effective_weight`).
+    Returns the imported pipeline's explain launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.convert import load_encoder
+    from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import (
+        _wn_effective_weight,
+        params_from_hf_dir,
+    )
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    src = build_pipeline(torch, cfg, seed=0)
+    sd = hf_state_dict(torch, src.encoder, seed=6)
+    w_eff = _wn_effective_weight({k.removeprefix("wav2vec2."): v for k, v in sd.items()},
+                                 "encoder.pos_conv_embed.conv")
+    with torch.no_grad():
+        src.encoder.pos_conv.conv.weight.copy_(torch.from_numpy(w_eff))
+    nbytes = sum(v.nbytes for v in sd.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if fmt == "safetensors":
+            write_safetensors(os.path.join(tmp, "model.safetensors"), sd)
+        else:
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                       os.path.join(tmp, "pytorch_model.bin"))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = params_from_hf_dir(tmp, cfg.embedder)
+        t_read = time.perf_counter() - t0
+    del sd
+    dst = build_pipeline(torch, cfg, seed=1)
+    load_encoder(dst.encoder, params["params"])
+    dst.unet.load_state_dict(src.unet.state_dict())
+    dst.logreg = dict(src.logreg)
+    wav = torch.from_numpy((np.random.default_rng(7).standard_normal(
+        (clips, cfg.audio.num_samples)) * 0.1).astype(np.float32)).cuda()
+    want = src.explain(wav)
+    _cuda.reset_launches()
+    got = dst.explain(wav)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"HF import {name} ({fmt}, {nbytes / 1e9:.3f} GB f32): written in {t_write:.2f} s, "
+          f"read and mapped in {t_read:.2f} s; explain launches {launches}")
+    for key in ("probs_clean", "probs_relevant", "probs_irrelevant", "relevant_wav", "mask"):
+        same = torch.equal(getattr(got, key), getattr(want, key))
+        print(f"  {key}: bit for bit {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"HF import {name}: {key} differs from the source weights' explain")
+    return launches
+
+
+def run_training_remat(torch, cfg) -> dict:
+    """Three training steps at 2 clips with remat off, "full" and "dots"
+    (same seed, same clips): step ms, peak memory, launches (the
+    checkpointed layers rerun kernel A in the backward pass: A 27 + 18 a
+    step) and the first step's decoder gradients against remat off (1e-3 of
+    their scale). cuDNN takes its deterministic algorithms in this phase:
+    its default backward convolutions may sum in any order, so that two
+    identical steps need not agree, and through the bf16 embedder such a
+    spread would hide what remat does. How far two identical no-remat steps
+    drift with the default algorithms is measured first and printed.
+    Returns {path: launches of the three steps}."""
+    import numpy as np
+
+    b = cfg.train.batch_size
+    rng = np.random.default_rng(4)
+    wavs = [(rng.standard_normal((b, cfg.audio.num_samples)) * 0.1).astype(np.float32)
+            for _ in range(3)]
+    paths, first_grads = {}, {}
+    # two identical no-remat steps with cuDNN's default algorithms
+    default = [_remat_steps(torch, cfg, wavs[:1], "off")[1] for _ in range(2)]
+    spread = float((default[0] - default[1]).abs().max()) / float(default[1].abs().max())
+    print(f"training remat off twice with cuDNN's default algorithms: the first step's "
+          f"decoder gradients differ by {spread:.3e} of their largest magnitude "
+          f"(measured, no bar)")
+    del default
+    torch.backends.cudnn.deterministic = True
+    try:
+        for policy in ("off", "full", "dots"):
+            paths[f"train_remat_{policy}_3_steps"], first_grads[policy] = _remat_steps(
+                torch, cfg, wavs, policy)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref = first_grads["off"].cpu()
+    for policy in ("full", "dots"):
+        check_close(f"first step's decoder gradients, remat {policy} vs off",
+                    first_grads[policy].cpu(), ref, 1e-3 * float(ref.abs().max()))
+    return paths
+
+
+def _remat_steps(torch, cfg, wavs, policy: str):
+    """Training steps on `wavs` from a fresh seeded pipeline with remat
+    `policy` -> (launches, the first step's decoder gradients)."""
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    e, b, n = cfg.embedder, cfg.train.batch_size, len(wavs)
+    emb = dataclasses.replace(e, remat=policy != "off",
+                              remat_policy="full" if policy == "off" else policy)
+    pipe = build_pipeline(torch, cfg.replace(embedder=emb))
+    fusable = sum(blk.fusable for blk in pipe.encoder.feature_encoder.conv_layers)
+    state, step = init_train_state(pipe), make_train_step(pipe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    times = []
+    for i, wav in enumerate(wavs):
+        t0 = time.perf_counter()
+        _, aux = step(state, wav)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first_grad = torch.cat([p.grad.flatten() for p in pipe.unet.parameters()])
+            first_loss = float(aux["loss"])
+        if not bool(torch.isfinite(aux["loss_vec"]).all()):
+            fail(f"training remat {policy}: non-finite losses")
+    launches = dict(_cuda.LAUNCHES)
+    recompute = 2 * e.num_layers if policy != "off" else 0
+    want = launches_of(a=n * (3 * e.num_layers + recompute), b=n, c=2 * n,
+                       d=3 * n * (len(e.conv_dim) - fusable), e=3 * n * fusable)
+    steady = f" (steady {sum(times[1:]) / (n - 1):.1f})" if n > 1 else ""
+    print(f"training remat {policy}, {n} steps at {b} clips, deterministic cuDNN "
+          f"{torch.backends.cudnn.deterministic}: step ms {[round(t, 1) for t in times]}{steady}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, "
+          f"first loss {first_loss!r}")
+    if launches != want:
+        fail(f"training remat {policy}: launch counts {launches} != {want}")
+    del pipe, state, step
+    torch.cuda.empty_cache()
+    return launches, first_grad
+
+
+def run_features_training(torch, cfg) -> dict:
+    """One full-width training step of the feature decoder at 2 clips after
+    a warm-up step: launches (one clean embed serves target and decoder
+    input: A 27, as in the UNet's step), finite losses, decoder changed,
+    embedder bit-identical; step ms and peak memory."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    e, b = cfg.embedder, cfg.train.batch_size
+    pipe = build_pipeline(torch, cfg)
+    state = init_train_state(pipe, decoder="features")
+    step = make_train_step(pipe, decoder="features")
+    rng = np.random.default_rng(9)
+    wavs = [(rng.standard_normal((b, cfg.audio.num_samples)) * 0.1).astype(np.float32)
+            for _ in range(2)]
+    enc_before = [p.detach().clone() for p in pipe.encoder.parameters()]
+    dec_before = [p.detach().clone() for p in pipe.feat_decoder.parameters()]
+    step(state, wavs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, aux = step(state, wavs[1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    fusable = sum(blk.fusable for blk in pipe.encoder.feature_encoder.conv_layers)
+    want = launches_of(a=3 * e.num_layers, b=1, c=2, d=3 * (len(e.conv_dim) - fusable),
+                       e=3 * fusable)
+    vec = aux["loss_vec"].cpu()
+    print(f"training step, decoder=features, {b} clips: {ms:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, "
+          f"losses {[round(v, 5) for v in vec.tolist()]}")
+    if launches != want:
+        fail(f"feature-decoder training step: launch counts {launches} != {want}")
+    if not bool(torch.isfinite(vec).all()):
+        fail("feature-decoder training step: non-finite losses")
+    if not all(torch.equal(a, p) for a, p in zip(enc_before, pipe.encoder.parameters())):
+        fail("feature-decoder training changed an embedder parameter")
+    if all(torch.equal(a, p) for a, p in zip(dec_before, pipe.feat_decoder.parameters())):
+        fail("feature-decoder training changed no decoder parameter")
+    return launches
+
+
+def tiny_aligned_config():
+    """80000-sample clips through the default conv kernels and strides (249
+    frames, as the STFT's) at narrow widths, a feature decoder with one
+    attention block."""
+    from xai_audio_deepfakes_tpu_torch.config import (
+        EmbedderConfig,
+        FeatDecoderConfig,
+        PipelineConfig,
+        UNetConfig,
+    )
+
+    return PipelineConfig(
+        embedder=EmbedderConfig(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+                                conv_dim=(8,) * 7, num_conv_pos_embeddings=16,
+                                num_conv_pos_embedding_groups=2, output_layer=2),
+        unet=UNetConfig(freq_bins=64, frames=24, base_channels=4),
+        feat_decoder=FeatDecoderConfig(feature_dim=32, hidden=16, attn_layers=1))
+
+
+def twin_pipelines(torch, cfg, seed: int = 5):
+    """The same random weights on the card and on the CPU."""
+    from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+
+    gpu = ADDvisorPipeline(cfg, device="cuda", seed=seed)
+    cpu = ADDvisorPipeline(cfg, device="cpu", seed=seed)
+    for name in ("encoder", "unet", "feat_decoder"):
+        getattr(cpu, name).load_state_dict(getattr(gpu, name).state_dict())
+    cpu.logreg = {k: v.cpu() for k, v in gpu.logreg.items()}
+    return gpu, cpu
+
+
+def run_tiny_features_and_attribution(torch) -> None:
+    """A tiny f32 feature-decoder explain (aligned geometry, one attention
+    block) and a tiny f32 `input_x_gradient` on the card against the CPU:
+    mask 1e-5, waveforms 2e-4, probabilities 1e-4; the map within 1e-3 of
+    its largest magnitude."""
+    from xai_audio_deepfakes_tpu_torch.attrib.methods import input_x_gradient
+    from xai_audio_deepfakes_tpu_torch.config import (
+        AudioConfig,
+        EmbedderConfig,
+        PipelineConfig,
+        UNetConfig,
+    )
+    from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply
+
+    gpu, cpu = twin_pipelines(torch, tiny_aligned_config())
+    wav = torch.randn(2, 80000, generator=torch.Generator().manual_seed(10)) * 0.1
+    out_g = gpu.explain(wav.cuda(), decoder="features")
+    out_c = cpu.explain(wav, decoder="features")
+    torch.cuda.synchronize()
+    for name, atol in (("mask", 1e-5), ("relevant_wav", 2e-4), ("irrelevant_wav", 2e-4),
+                       ("probs_clean", 1e-4), ("probs_relevant", 1e-4), ("probs_irrelevant", 1e-4)):
+        check_close(f"tiny features explain {name}", getattr(out_g, name).cpu(),
+                    getattr(out_c, name), atol)
+
+    cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5), embedder=EmbedderConfig.tiny(),
+                         unet=UNetConfig(freq_bins=64, frames=24, base_channels=4))
+    gpu, cpu = twin_pipelines(torch, cfg)
+    wav = torch.randn(2, 8000, generator=torch.Generator().manual_seed(11)) * 0.1
+    maps = []
+    for pipe, w in ((gpu, wav.cuda()), (cpu, wav)):
+        def score(x, pipe=pipe):
+            return logreg_apply(pipe.logreg, pipe.embed(x).mean(dim=1))[0]
+
+        maps.append(input_x_gradient(score, w).cpu())
+    check_close("tiny input_x_gradient map", maps[0], maps[1], 1e-3 * float(maps[1].abs().max()))
+
+
 def main() -> int:
     import torch
 
@@ -975,21 +1621,46 @@ def main() -> int:
         check_ln_gelu(torch, cfg, rows)
         check_conv_ln_gelu(torch, cfg, rows)
     check_backwards(torch, cfg)
+    check_backwards_bf16(torch, cfg)
     torch.cuda.empty_cache()
 
     n_layers, n_conv = cfg.embedder.num_layers, len(cfg.embedder.conv_dim)
-    counts = [run_explain(torch, cfg, {"attention": n_layers, "stft": 1, "istft": 2,
-                                       "ln_gelu": n_conv, "conv_ln_gelu": 0}, reps=2)]
+    per_explain = launches_of(a=n_layers, b=1, c=2, d=n_conv)
+    per_explain_fused = launches_of(a=n_layers, b=1, c=2, d=1, e=n_conv - 1)
+    # the feature decoder embeds the clean clips (B) and the masked ones (2B)
+    # in two passes: twice the embedder's launches, one STFT, two iSTFTs
+    per_features = launches_of(a=2 * n_layers, b=1, c=2, d=2 * n_conv)
+    per_features_fused = launches_of(a=2 * n_layers, b=1, c=2, d=2, e=2 * (n_conv - 1))
+    paths: dict = {}
+    pipe = build_pipeline(torch, cfg)
+    counts = [run_explain(torch, cfg, per_explain, reps=2, pipe=pipe)]
+    paths["explain_features"] = run_explain(torch, cfg, per_features, reps=2, name="features",
+                                            split=True, decoder="features", pipe=pipe)[0]
+    paths["eval_unet_3x8"] = run_eval(torch, pipe, "unet", per_explain)
+    paths["eval_features_3x8"] = run_eval(torch, pipe, "features", per_features)
+    paths.update(run_attribution(torch, pipe))
+    del pipe
     torch.cuda.empty_cache()
-    counts.append(run_explain(torch, fused, {"attention": n_layers, "stft": 1, "istft": 2,
-                                             "ln_gelu": 1, "conv_ln_gelu": n_conv - 1}, reps=2))
+    pipe = build_pipeline(torch, fused)
+    counts.append(run_explain(torch, fused, per_explain_fused, reps=2, pipe=pipe))
+    paths["explain_features_fused_conv"] = run_explain(
+        torch, fused, per_features_fused, reps=2, name="features fused_conv", decoder="features",
+        pipe=pipe)[0]
+    del pipe
     # same seed, same weights: the two frontends differ by bf16 rounding only
     check_close("explain fused_conv probabilities vs default", counts[1][1], counts[0][1], 0.05)
     torch.cuda.empty_cache()
     train_launches = run_training(torch, fused)
     torch.cuda.empty_cache()
+    paths.update(run_training_remat(torch, fused))
+    paths["train_features_step"] = run_features_training(torch, fused)
+    torch.cuda.empty_cache()
+    paths["hf_import_explain"] = run_hf_import(torch, cfg, BATCH, "safetensors", "full width")
+    torch.cuda.empty_cache()
+    run_hf_import(torch, tiny_aligned_config(), 2, "bin", "tiny width")
     run_tiny_reference(torch)
     run_tiny_training(torch)
+    run_tiny_features_and_attribution(torch)
 
     # the JAX package's serving configurations: the entry point's (bf16,
     # fused_ln_gelu False) and bench.py's default (bf16, int8, tanh, bf16
@@ -998,9 +1669,9 @@ def main() -> int:
     bench = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", quant="int8", gelu="tanh"),
                            unet=UNetConfig(dtype="bfloat16"))
     static = bench.replace(embedder=dataclasses.replace(bench.embedder, quant="int8-static"))
-    serving = {"attention": n_layers, "stft": 1, "istft": 2, "ln_gelu": 0, "conv_ln_gelu": 0}
+    serving = launches_of(a=n_layers, b=1, c=2)
     paths = {"explain": counts[0][0], "explain_fused_conv": counts[1][0],
-             "train_3_steps": train_launches}
+             "train_3_steps": train_launches, **paths}
     for path, pcfg in (("explain_entry_config", entry), ("explain_bench_default", bench),
                        ("explain_int8_static", static)):
         torch.cuda.empty_cache()

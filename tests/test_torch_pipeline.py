@@ -2,6 +2,7 @@
 JAX pipeline's `jit_explain` on the CPU at tiny geometry, the port's
 independence from JAX, its device rule and the configuration it refuses."""
 
+import copy
 import inspect
 import re
 import subprocess
@@ -18,10 +19,13 @@ from xai_audio_deepfakes_tpu import config as jc
 from xai_audio_deepfakes_tpu.models.logreg import LogReg
 from xai_audio_deepfakes_tpu.pipeline.core import ADDvisorPipeline as JPipeline
 from tests.test_torch_bf16 import _assert_bars, _jax_explain
+from tests.test_torch_encoder_import import _OpCounter
 from tests.test_torch_models import random_params
 from tests.test_torch_quant import _rel_l2
 from xai_audio_deepfakes_tpu_torch import config as tc
 from xai_audio_deepfakes_tpu_torch.convert import load_jax_params
+from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply
+from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import stack_layer_params
 from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -97,8 +101,11 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_import_no_jax():
+    """No JAX and nothing of the JAX package; nor transformers, safetensors
+    or scikit-learn, which the card's machine lacks."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|xai_audio_deepfakes_tpu)(\.|\s|$)", re.M)
+        r"^\s*(import|from)\s+(jax|flax|optax|xai_audio_deepfakes_tpu|transformers|"
+        r"safetensors|sklearn)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_explain.py"]
     assert len(files) > 10
     for path in files:
@@ -120,11 +127,39 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("changes", [
     {"scan_layers": True}, {"remat": True, "remat_policy": "dots"},
 ], ids=lambda c: "-".join(c))
-def test_unported_embedder_options_raise(changes):
-    cfg = _tiny(tc)
-    cfg = cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, **changes))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-        ADDvisorPipeline(cfg, device="cpu")
+def test_unported_embedder_options_raise(jax_params, changes):
+    """The two options the port refused until they were ported are accepted
+    and change no number. `scan_layers` is a parameter layout: JAX's tree
+    with its layers stacked as a scanned encoder holds them
+    (`stack_layer_params`) loads into a scan_layers pipeline whose explain
+    equals the unrolled one's bit for bit. "dots" is a checkpoint policy,
+    active only where a gradient is taken: the backward of the detector's
+    score through `embed` recomputes the LayerNorms (none without remat),
+    and its input gradient equals the one without remat (1e-6, the bar of
+    tests/test_torch_encoder_import.py)."""
+    base = _tiny(tc)
+    cfg = base.replace(embedder=tc.dataclasses.replace(base.embedder, **changes))
+    wav = np.random.default_rng(8).standard_normal((2, 8000)).astype(np.float32) * 0.1
+    pipes = [ADDvisorPipeline(c, device="cpu", seed=2) for c in (cfg, base)]
+    if "scan_layers" in changes:
+        enc = copy.deepcopy(jax_params["encoder"]["params"])
+        stack_layer_params(enc, sum(k.startswith("layer_") for k in enc))
+        load_jax_params(pipes[0], dict(jax_params, encoder={"params": enc}))
+        load_jax_params(pipes[1], jax_params)
+        got, want = (p.explain(wav) for p in pipes)
+        for name in ("mask", "relevant_wav", "probs_clean", "probs_relevant", "probs_irrelevant"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        return
+    grads, norms = [], []
+    for pipe in pipes:
+        load_jax_params(pipe, jax_params)
+        x = torch.from_numpy(wav).requires_grad_()
+        score = logreg_apply(pipe.logreg, pipe.embed(x).mean(dim=1))[0].sum()
+        with _OpCounter() as ops:
+            grads.append(torch.autograd.grad(score, x)[0])
+        norms.append(ops.counts["native_layer_norm"])
+    assert norms[0] > 0 == norms[1], norms
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("changes", [
@@ -221,9 +256,9 @@ def test_formulation_switches(jax_params, bf16_reference, fused_ln_gelu, precisi
 
 
 def test_unported_entry_points_raise():
+    """Vocoding is still to port. (`explain(decoder="features")` runs since
+    it was ported: tests/test_torch_feat_decoder.py.)"""
     pipe = ADDvisorPipeline(_tiny(tc), device="cpu")
     wav = np.zeros((1, 8000), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.explain(wav, decoder="features")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pipe.vocode(wav)

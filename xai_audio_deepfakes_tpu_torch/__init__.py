@@ -9,10 +9,14 @@ ops       DSP, masking and the kernel wrappers (attention, STFT/iSTFT,
           LayerNorm+GELU, conv+LayerNorm+GELU), each with its plain PyTorch
           version and a gradient
 csrc      the hand-written CUDA kernels, built with nvcc at first use
-models    UNet mask decoder, wav2vec2 XLS-R embedder, LogReg head
-pipeline  `ADDvisorPipeline.explain(decoder="unet")`, end to end
+models    UNet and feature mask decoders, wav2vec2 XLS-R embedder (with the
+          HF checkpoint import), LogReg head
+pipeline  `ADDvisorPipeline.explain(decoder="unet" | "features")`, end to end
 losses    the LMAC loss
-train     LMAC training of the UNet decoder (`train_addvisor`), checkpoints
+train     LMAC training of either mask decoder (`train_addvisor`), checkpoints
+metrics   the LMAC faithfulness metrics, EER, the eval and attribution harnesses
+attrib    gradient attribution over the waveform (saliency, input x gradient,
+          integrated gradients, SmoothGrad, GradientShap)
 data      the background batch prefetcher
 convert   the weight bridge from and to the JAX package's parameter tree
 
@@ -27,6 +31,12 @@ _LAZY = {
     "PipelineConfig": ("xai_audio_deepfakes_tpu_torch.config", "PipelineConfig"),
     "EmbedderConfig": ("xai_audio_deepfakes_tpu_torch.config", "EmbedderConfig"),
     "UNetConfig": ("xai_audio_deepfakes_tpu_torch.config", "UNetConfig"),
+    "FeatDecoderConfig": ("xai_audio_deepfakes_tpu_torch.config", "FeatDecoderConfig"),
+    "params_from_hf_dir": ("xai_audio_deepfakes_tpu_torch.models.wav2vec2", "params_from_hf_dir"),
+    "run_explanation_metrics": ("xai_audio_deepfakes_tpu_torch.metrics.harness",
+                                "run_explanation_metrics"),
+    "run_attribution_metrics": ("xai_audio_deepfakes_tpu_torch.metrics.harness",
+                                "run_attribution_metrics"),
     "MaskingConvention": ("xai_audio_deepfakes_tpu_torch.config", "MaskingConvention"),
     "LabelPolarity": ("xai_audio_deepfakes_tpu_torch.config", "LabelPolarity"),
     "load_jax_params": ("xai_audio_deepfakes_tpu_torch.convert", "load_jax_params"),

@@ -3,9 +3,9 @@
 Field names and defaults are those of `xai_audio_deepfakes_tpu/config.py`, so
 a configuration reads the same on both sides. The port keeps its own copies
 (it imports nothing of the JAX package). `PipelineConfig` carries the
-sub-configs of the explanation path (`explain(decoder="unet")`) and of LMAC
-training of the UNet decoder (`loss`, `train`); the mel, vocoder,
-feature-decoder and mesh configs arrive with the slices that use them
+sub-configs of the explanation path (`explain`, with the UNet or the
+feature decoder) and of LMAC training of either decoder (`loss`, `train`);
+the mel, vocoder and mesh configs arrive with the slices that use them
 (ROADMAP.md, Queue 1).
 
 The JAX package's implementation switches select formulations, and the
@@ -39,7 +39,15 @@ PyTorch on both.
 - `UNetConfig.dtype="bfloat16"`: bf16 convolutions with f32 BatchNorm,
   serving only; the trainer refuses it (ROADMAP Queue 1 item 7).
 - `EmbedderConfig.remat=True` checkpoints each transformer layer
-  (`torch.utils.checkpoint`), which is `remat_policy="full"`; "dots" raises.
+  (`torch.utils.checkpoint`): `remat_policy="full"` recomputes the whole
+  layer in the backward pass, "dots" keeps the products' outputs (`mm`,
+  `addmm`, `bmm`, `_int_mm`) and recomputes the rest, as
+  `jax.checkpoint_policies.checkpoint_dots` keeps every `dot_general`.
+- `EmbedderConfig.scan_layers` selects the JAX package's stacked parameter
+  layout (`layers/layer`, a leading [n_layers] axis), which
+  `convert.load_encoder` and `params_from_hf_state_dict` read and write; the
+  numbers are the unrolled encoder's, and the port's layer loop stays a
+  loop.
 - `TrainConfig.target_quant` other than "none" raises (ROADMAP Queue 1
   item 7); `target_gelu="tanh"` is accepted.
 
@@ -70,6 +78,15 @@ class LabelPolarity(str, enum.Enum):
 
     MANIPULATED_IS_ONE = "manipulated_is_one"
     REAL_IS_ONE = "real_is_one"
+
+
+def manipulated_probability(prob, polarity: "LabelPolarity | str"):
+    """The detector's sigmoid output P(class 1) as P(manipulated) under
+    `polarity`. Every decision on "manipulated" (the attribution harness's
+    count) goes through this one mapping."""
+    if LabelPolarity(polarity) is LabelPolarity.MANIPULATED_IS_ONE:
+        return prob
+    return 1.0 - prob
 
 
 @dataclass(frozen=True)
@@ -171,6 +188,23 @@ class UNetConfig:
 
 
 @dataclass(frozen=True)
+class FeatDecoderConfig:
+    """Feature-input mask decoder: SSL features [B, T, feature_dim] -> a
+    (freq_bins x T) mask, T the 249 embedder frames that align with the 249
+    STFT frames. `temporal_blocks` residual k5 convs over the frames, then
+    `attn_layers` pre-LN self-attention + FFN blocks (`attn_heads` heads)."""
+
+    feature_dim: int = 1920
+    freq_bins: int = 512
+    frames: int = 249
+    hidden: int = 512
+    dtype: str = "float32"
+    temporal_blocks: int = 2
+    attn_layers: int = 0
+    attn_heads: int = 8
+
+
+@dataclass(frozen=True)
 class LossConfig:
     """LMAC loss: learnable softplus weights over [l_in, l_out, l1], raw
     init [3.0, 0.5, 3.0]; optional TV regulariser (off at reg_w_tv = 0).
@@ -219,6 +253,7 @@ class PipelineConfig:
     stft: STFTConfig = STFTConfig()
     embedder: EmbedderConfig = EmbedderConfig()
     unet: UNetConfig = UNetConfig()
+    feat_decoder: FeatDecoderConfig = FeatDecoderConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
     masking: MaskingConvention = MaskingConvention.LOG1P
@@ -231,21 +266,15 @@ class PipelineConfig:
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise on configuration the port does not implement."""
     e, u = cfg.embedder, cfg.unet
-    todo = {
-        "EmbedderConfig.scan_layers": (e.scan_layers, "Queue 1 item 4"),
-        "EmbedderConfig.remat_policy other than full": (
-            e.remat and e.remat_policy != "full", "Queue 1 item 4"),
-        "TrainConfig.target_quant": (cfg.train.target_quant != "none", "Queue 1 item 7"),
-    }
-    for name, (unsupported, item) in todo.items():
-        if unsupported:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md {item})"
-            )
+    if cfg.train.target_quant != "none":
+        raise NotImplementedError(
+            "TrainConfig.target_quant is not ported yet (ROADMAP.md Queue 1 item 7)")
     choices = {
         "STFT precision": (cfg.stft.precision, ("default", "high", "highest")),
         "embedder dtype": (e.dtype, ("float32", "bfloat16")),
         "UNet dtype": (u.dtype, ("float32", "bfloat16")),
+        "feature decoder dtype": (cfg.feat_decoder.dtype, ("float32", "bfloat16")),
+        "remat_policy": (e.remat_policy, ("full", "dots")),
         "embedder quant": (e.quant, ("none", "int8", "int8-static")),
         "embedder quant_conv": (e.quant_conv, ("none", "int8")),
         "UNet quant": (u.quant, ("none", "int8")),

@@ -1,11 +1,13 @@
 """Weight bridge: the JAX package's parameter tree -> the port's modules,
-and the trained decoder back (`unet_variables_to_jax`, `train_state_to_jax`)
-so that a test can hold updated parameters and running statistics against
-the JAX train state leaf by leaf.
+and the trained decoders back (`unet_variables_to_jax`,
+`feat_decoder_variables_to_jax`, `train_state_to_jax`) so that a test can
+hold updated parameters and running statistics against the JAX train state
+leaf by leaf.
 
 Input: the tree of `ADDvisorPipeline.init_params(...)` (or one loaded from a
 JAX checkpoint) with every leaf converted to a numpy array:
   {"encoder": {"params": ...}, "unet": {"params": ..., "batch_stats": ...},
+   "feat_decoder": {"params": ...} (optional),
    "logreg": {"weight": [D, 1], "bias": [1]},
    "quant_scales": {site: [n_layers, C_site]}  (after `calibrate_quant`)}
 The layout rules invert those of the JAX package's importers
@@ -19,6 +21,10 @@ The layout rules invert those of the JAX package's importers
                                       flipped back
   BatchNorm scale/bias + batch_stats mean/var
                                    -> weight/bias/running_mean/running_var
+  attention q/k/v [in, heads, hd]  -> Linear [heads * hd, in]
+  attention out [heads, hd, out]   -> Linear [out, heads * hd]
+The encoder's transformer layers come unrolled (`layer_{i}`) or stacked
+(`layers/layer`, a leading [n_layers] axis, `EmbedderConfig.scan_layers`).
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xai_audio_deepfakes_tpu_torch.models.feat_decoder import FeatureMaskDecoder
 from xai_audio_deepfakes_tpu_torch.models.unet import UNetMaskDecoder
-from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
+from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, tree_map
 
 
 def _t(a) -> torch.Tensor:
@@ -106,10 +113,82 @@ def unet_variables_to_jax(model: UNetMaskDecoder) -> dict:
     return {"params": p, "batch_stats": stats}
 
 
+def _set_dense(dense, leaf) -> None:
+    _set(dense.weight, np.asarray(leaf["kernel"]).T)
+    _set(dense.bias, leaf["bias"])
+
+
+def _set_ln(ln, leaf) -> None:
+    _set(ln.weight, leaf["scale"])
+    _set(ln.bias, leaf["bias"])
+
+
+def load_feat_decoder(model: FeatureMaskDecoder, variables: dict) -> None:
+    """flax FeatureMaskDecoder variables ({"params": tree}) -> `model`."""
+    p = variables["params"]
+    _set_ln(model.in_ln, p["in_ln"])
+    _set_dense(model.proj_in, p["proj_in"])
+    for i, conv in enumerate(model.tconv):
+        _set(conv.weight, np.asarray(p[f"tconv_{i}"]["kernel"]).transpose(2, 1, 0))
+        _set(conv.bias, p[f"tconv_{i}"]["bias"])
+    for i, attn in enumerate(model.attn):
+        leaf = p[f"attn_{i}"]
+        for name in ("query", "key", "value"):
+            k = np.asarray(leaf[name]["kernel"])  # [in, heads, hd]
+            _set(getattr(attn, name).weight, k.reshape(k.shape[0], -1).T)
+            _set(getattr(attn, name).bias, np.asarray(leaf[name]["bias"]).reshape(-1))
+        k = np.asarray(leaf["out"]["kernel"])  # [heads, hd, out]
+        _set(attn.out.weight, k.reshape(-1, k.shape[-1]).T)
+        _set(attn.out.bias, leaf["out"]["bias"])
+        _set_ln(model.attn_ln[i], p[f"attn_ln_{i}"])
+        _set_ln(model.ffn_ln[i], p[f"ffn_ln_{i}"])
+        _set_dense(model.ffn_in[i], p[f"ffn_in_{i}"])
+        _set_dense(model.ffn_out[i], p[f"ffn_out_{i}"])
+    _set_ln(model.out_ln, p["out_ln"])
+    _set_dense(model.freq_head, p["freq_head"])
+
+
+def feat_decoder_variables_to_jax(model: FeatureMaskDecoder) -> dict:
+    """The inverse of `load_feat_decoder`: the port's feature decoder as
+    flax variables {"params"} of f32 numpy arrays."""
+
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    def dense(d):
+        return {"kernel": np.ascontiguousarray(a(d.weight).T), "bias": a(d.bias)}
+
+    def ln(m):
+        return {"scale": a(m.weight), "bias": a(m.bias)}
+
+    p = {"in_ln": ln(model.in_ln), "proj_in": dense(model.proj_in),
+         "out_ln": ln(model.out_ln), "freq_head": dense(model.freq_head)}
+    for i, conv in enumerate(model.tconv):
+        p[f"tconv_{i}"] = {"kernel": np.ascontiguousarray(a(conv.weight).transpose(2, 1, 0)),
+                           "bias": a(conv.bias)}
+    for i, attn in enumerate(model.attn):
+        nh, hd = attn.heads, attn.head_dim
+        leaf = {}
+        for name in ("query", "key", "value"):
+            d = getattr(attn, name)
+            leaf[name] = {"kernel": np.ascontiguousarray(a(d.weight).T.reshape(-1, nh, hd)),
+                          "bias": a(d.bias).reshape(nh, hd)}
+        leaf["out"] = {"kernel": np.ascontiguousarray(a(attn.out.weight).T.reshape(nh, hd, -1)),
+                       "bias": a(attn.out.bias)}
+        p[f"attn_{i}"] = leaf
+        p[f"attn_ln_{i}"], p[f"ffn_ln_{i}"] = ln(model.attn_ln[i]), ln(model.ffn_ln[i])
+        p[f"ffn_in_{i}"], p[f"ffn_out_{i}"] = dense(model.ffn_in[i]), dense(model.ffn_out[i])
+    return {"params": p}
+
+
 def train_state_to_jax(state) -> dict:
     """An `AddvisorTrainState` as numpy, under the field names of the JAX
-    package's train state (the optimisers' moments are left out)."""
-    variables = unet_variables_to_jax(state.decoder)
+    package's train state (the optimisers' moments are left out). The
+    feature decoder has no batch statistics: that leaf is {}, as in JAX."""
+    if isinstance(state.decoder, FeatureMaskDecoder):
+        variables = dict(feat_decoder_variables_to_jax(state.decoder), batch_stats={})
+    else:
+        variables = unet_variables_to_jax(state.decoder)
     return {"unet_params": variables["params"], "unet_batch_stats": variables["batch_stats"],
             "w_raw": state.w_raw.detach().cpu().numpy(), "step": state.step}
 
@@ -121,7 +200,8 @@ def load_unet(model: UNetMaskDecoder, variables: dict) -> None:
 
 
 def load_encoder(enc: Wav2Vec2Encoder, params: dict) -> None:
-    """flax Wav2Vec2Encoder params (the tree under "params") -> `enc`."""
+    """flax Wav2Vec2Encoder params (the tree under "params"), with the
+    layers unrolled or stacked, -> `enc`."""
     fe = params["feature_encoder"]
     for i, block in enumerate(enc.feature_encoder.conv_layers):
         leaf = fe[f"conv_{i}"]
@@ -142,8 +222,10 @@ def load_encoder(enc: Wav2Vec2Encoder, params: dict) -> None:
     _set(enc.pos_conv.conv.weight, np.asarray(pc["kernel"]).transpose(2, 1, 0))
     _set(enc.pos_conv.conv.bias, pc["bias"])
 
+    stacked = params["layers"]["layer"] if "layers" in params else None
     for i, layer in enumerate(enc.layers):
-        leaf = params[f"layer_{i}"]
+        leaf = (params[f"layer_{i}"] if stacked is None
+                else tree_map(lambda x, i=i: np.asarray(x)[i], stacked))
         for ln, name in ((layer.attn_ln, "attn_ln"), (layer.ffn_ln, "ffn_ln")):
             _set(ln.weight, leaf[name]["scale"])
             _set(ln.bias, leaf[name]["bias"])
@@ -177,6 +259,8 @@ def load_jax_params(pipe, params: dict) -> None:
     them."""
     load_encoder(pipe.encoder, params["encoder"]["params"])
     load_unet(pipe.unet, params["unet"])
+    if "feat_decoder" in params:
+        load_feat_decoder(pipe.feat_decoder, params["feat_decoder"])
     pipe.logreg = {
         "weight": _t(params["logreg"]["weight"]).to(pipe.device),
         "bias": _t(params["logreg"]["bias"]).to(pipe.device),

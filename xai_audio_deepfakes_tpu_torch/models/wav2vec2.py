@@ -13,8 +13,16 @@ float path in f32 or bf16 and the int8 serving path.
 The weights are frozen in every use the system has (serving, and LMAC
 training, where the gradient passes through the embedder to the waveform), so
 a gradient flows to the input through the kernels' autograd functions. With
-`remat` each transformer layer is recomputed in the backward pass
-(`torch.utils.checkpoint`, the "full" policy).
+`remat` each transformer layer is checkpointed (`torch.utils.checkpoint`):
+`remat_policy="full"` recomputes all of it in the backward pass, "dots"
+saves the products' outputs and recomputes the rest (`_dots_policy`).
+`scan_layers` changes only the parameter layout that `convert.load_encoder`
+reads (`stack_layer_params`); the layers run in a loop either way.
+
+`params_from_hf_state_dict` / `params_from_hf_dir` map a HF `Wav2Vec2Model`
+checkpoint (`model.safetensors`, read by `load_safetensors`, or
+`pytorch_model.bin`) onto the JAX package's parameter tree, as numpy
+arrays, which `convert.load_encoder` then loads: one mapping path.
 
 Cast points (those of the JAX source, which eager `apply` follows; XLA's
 fusion under `jax.jit` drops some of the roundings on the CPU):
@@ -58,11 +66,19 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import json
+import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig
 from xai_audio_deepfakes_tpu_torch.device import torch_dtype
@@ -413,6 +429,19 @@ class EncoderLayer(nn.Module):
         return (out, absmax) if collect_absmax else out
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten._int_mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """`remat_policy="dots"`: keep every product's output for the backward
+    pass and recompute everything else (LayerNorms, GELUs, casts, bias adds,
+    softmax), as `jax.checkpoint_policies.checkpoint_dots` keeps every
+    `dot_general`. Kernel A is no product here: its forward is recomputed,
+    as the Pallas call is under `checkpoint_dots`."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class Wav2Vec2Encoder(nn.Module):
     """normalised waveform [B, L] -> features [B, T, H] f32
     (== HF hidden_states[output_layer])."""
@@ -426,6 +455,12 @@ class Wav2Vec2Encoder(nn.Module):
         n_run = min(cfg.output_layer, cfg.num_layers)
         self.layers = nn.ModuleList(EncoderLayer(cfg, generator, device) for _ in range(n_run))
         self.final_ln = _LNParams(cfg.hidden_size, device) if cfg.final_layer_norm else None
+
+    def _remat_kwargs(self) -> dict:
+        if self.cfg.remat_policy == "dots":
+            return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                    _dots_policy)}
+        return {}
 
     def with_gelu(self, gelu: str) -> "Wav2Vec2Encoder":
         """A second encoder over the SAME parameters whose modules compute
@@ -457,7 +492,7 @@ class Wav2Vec2Encoder(nn.Module):
                 x, absmax = layer(x, scales, collect_absmax=True)
                 stats.append(absmax)
             elif remat:
-                x = checkpoint(layer, x, scales, use_reentrant=False)
+                x = checkpoint(layer, x, scales, use_reentrant=False, **self._remat_kwargs())
             else:
                 x = layer(x, scales)
         if self.final_ln is not None:
@@ -466,3 +501,148 @@ class Wav2Vec2Encoder(nn.Module):
         if calibrate:
             return x, {s: torch.stack([m[s] for m in stats]) for s in stats[0]}
         return x
+
+
+# ---------------------------------------------------------------------------
+# Weight import from HF checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _wn_effective_weight(sd: dict, prefix: str) -> np.ndarray:
+    """Materialise torch weight_norm(conv, dim=2): w = g * v / ||v|| over
+    axes (0, 1), from either key form (`parametrizations.weight.original0/1`
+    or `weight_g` / `weight_v`); a plain `weight` is taken as it is."""
+    for g_key, v_key in (
+        (f"{prefix}.parametrizations.weight.original0", f"{prefix}.parametrizations.weight.original1"),
+        (f"{prefix}.weight_g", f"{prefix}.weight_v"),
+    ):
+        if g_key in sd:
+            g = np.asarray(sd[g_key], dtype=np.float32)
+            v = np.asarray(sd[v_key], dtype=np.float32)
+            norm = np.sqrt((v * v).sum(axis=(0, 1), keepdims=True))
+            return g * v / np.maximum(norm, 1e-12)
+    return np.asarray(sd[f"{prefix}.weight"], dtype=np.float32)
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_layer_params(p: dict, n_layers: int) -> dict:
+    """Unrolled `layer_{i}` subtrees -> the scanned layout (`layers/layer`
+    with a leading [n_layers] axis). In place on `p`."""
+    layers = [p.pop(f"layer_{i}") for i in range(n_layers)]
+    p["layers"] = {"layer": tree_map(lambda *xs: np.stack(xs), *layers)}
+    return p
+
+
+def params_from_hf_state_dict(sd: dict, cfg: EmbedderConfig) -> dict:
+    """A HF `Wav2Vec2Model` state dict (do_stable_layer_norm=True,
+    feat_extract_norm="layer"; numpy values) -> {"params":
+    tree} in the JAX package's layout, numpy f32: torch conv [out, in, k] ->
+    [k, in, out], Linear [out, in] -> [in, out]. Takes min(cfg.num_layers,
+    layers in `sd`) layers, stacked under `scan_layers`."""
+
+    def arr(key):
+        return np.asarray(sd[key], dtype=np.float32)
+
+    p: dict = {"feature_encoder": {}}
+    for i in range(len(cfg.conv_dim)):
+        pre = f"feature_extractor.conv_layers.{i}"
+        blk = {
+            "conv": {"kernel": arr(f"{pre}.conv.weight").transpose(2, 1, 0)},
+            "layer_norm": {"scale": arr(f"{pre}.layer_norm.weight"),
+                           "bias": arr(f"{pre}.layer_norm.bias")},
+        }
+        if cfg.conv_bias:
+            blk["conv"]["bias"] = arr(f"{pre}.conv.bias")
+        p["feature_encoder"][f"conv_{i}"] = blk
+
+    p["feature_projection"] = {
+        "layer_norm": {"scale": arr("feature_projection.layer_norm.weight"),
+                       "bias": arr("feature_projection.layer_norm.bias")},
+        "projection": {"kernel": arr("feature_projection.projection.weight").T,
+                       "bias": arr("feature_projection.projection.bias")},
+    }
+    w_eff = _wn_effective_weight(sd, "encoder.pos_conv_embed.conv")  # [out, in/g, k]
+    p["pos_conv"] = {"conv": {"kernel": w_eff.transpose(2, 1, 0),
+                              "bias": arr("encoder.pos_conv_embed.conv.bias")}}
+
+    def dense(key):
+        return {"kernel": arr(f"{key}.weight").T, "bias": arr(f"{key}.bias")}
+
+    n_avail = 0
+    while f"encoder.layers.{n_avail}.layer_norm.weight" in sd:
+        n_avail += 1
+    n = min(cfg.num_layers, n_avail)
+    for i in range(n):
+        pre = f"encoder.layers.{i}"
+        p[f"layer_{i}"] = {
+            "attn_ln": {"scale": arr(f"{pre}.layer_norm.weight"),
+                        "bias": arr(f"{pre}.layer_norm.bias")},
+            "q_proj": dense(f"{pre}.attention.q_proj"),
+            "k_proj": dense(f"{pre}.attention.k_proj"),
+            "v_proj": dense(f"{pre}.attention.v_proj"),
+            "out_proj": dense(f"{pre}.attention.out_proj"),
+            "ffn_ln": {"scale": arr(f"{pre}.final_layer_norm.weight"),
+                       "bias": arr(f"{pre}.final_layer_norm.bias")},
+            "ffn_in": dense(f"{pre}.feed_forward.intermediate_dense"),
+            "ffn_out": dense(f"{pre}.feed_forward.output_dense"),
+        }
+    if cfg.final_layer_norm and "encoder.layer_norm.weight" in sd:
+        p["final_ln"] = {"scale": arr("encoder.layer_norm.weight"),
+                         "bias": arr("encoder.layer_norm.bias")}
+    if cfg.scan_layers:
+        stack_layer_params(p, n)
+    return {"params": p}
+
+
+_SAFETENSORS_DTYPES = {"F32": "<f4", "F16": "<f2"}
+
+
+def load_safetensors(path: str) -> dict:
+    """Read a `.safetensors` file into {name: numpy array}: an 8-byte
+    little-endian header length, a JSON header {name: {dtype, shape,
+    data_offsets}} (and an optional `__metadata__`), then the raw
+    little-endian data. F32 and F16 keep their dtype, as views of the
+    file's bytes read into memory; BF16, which numpy lacks, is read through
+    torch and returned as f32 (exact). Any other dtype raises."""
+    raw = np.fromfile(path, dtype=np.uint8)
+    n = int.from_bytes(raw[:8].tobytes(), "little")
+    header = json.loads(raw[8:8 + n].tobytes())
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = (base + o for o in info["data_offsets"])
+        shape = tuple(info["shape"])
+        buf = raw[start:end]
+        if info["dtype"] == "BF16":
+            bits = torch.from_numpy(buf.copy().view(np.int16))
+            out[name] = bits.view(torch.bfloat16).float().numpy().reshape(shape)
+        elif info["dtype"] in _SAFETENSORS_DTYPES:
+            out[name] = buf.view(_SAFETENSORS_DTYPES[info["dtype"]]).reshape(shape)
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
+    return out
+
+
+def params_from_hf_dir(model_dir: str, cfg: EmbedderConfig) -> dict:
+    """`params_from_hf_state_dict` of a local HF checkpoint directory:
+    `model.safetensors` when it is there, else `pytorch_model.bin` (loaded
+    with `weights_only=True`); the `wav2vec2.` prefix of a
+    `Wav2Vec2ForPreTraining`-style checkpoint is stripped."""
+    st_path = os.path.join(model_dir, "model.safetensors")
+    if os.path.exists(st_path):
+        sd = load_safetensors(st_path)
+    else:
+        sd = torch.load(os.path.join(model_dir, "pytorch_model.bin"), map_location="cpu",
+                        weights_only=True)
+        sd = {k: v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
+              for k, v in sd.items()}
+    sd = {k.removeprefix("wav2vec2."): v for k, v in sd.items()}
+    return params_from_hf_state_dict(sd, cfg)

@@ -21,8 +21,14 @@ def crop_spec(spec: torch.Tensor, freq_bins: int, frames: int) -> torch.Tensor:
 
 
 def pad_mask_to_spec(mask: torch.Tensor, freq_bins: int, frames: int) -> torch.Tensor:
-    """Zero-pad a cropped mask back to the full (freq_bins, frames) spec."""
+    """Zero-pad a cropped mask back to the full (freq_bins, frames) spec. A
+    mask larger than the spec raises (as `jnp.pad` does on a negative pad;
+    F.pad would crop it silently): the feature decoder's mask has the
+    embedder's frame count, which must not exceed the STFT's."""
     f, t = mask.shape[-2], mask.shape[-1]
+    if f > freq_bins or t > frames:
+        raise ValueError(f"mask {tuple(mask.shape)} does not fit in the ({freq_bins}, {frames}) "
+                         "spectrogram: the embedder's frames do not align with the STFT's")
     return F.pad(mask, (0, frames - t, 0, freq_bins - f))
 
 

@@ -1,13 +1,17 @@
 """End-to-end explanation pipeline (port of `pipeline/core.py`):
 wav -> STFT -> UNet mask -> masked iSTFTs -> one 3B-batch embedder pass ->
-LogReg -> three probabilities.
+LogReg -> three probabilities; or, with the feature decoder, wav -> one
+B-batch embed whose features give the mask and the clean probability ->
+masked iSTFTs -> one 2B-batch embed of the masked clips.
 
 The JAX pipeline is a frozen bundle of module definitions whose stages are
 pure functions of (params, arrays). Here the pipeline owns its modules and
 their weights; `convert.load_jax_params` sets them from a JAX parameter tree,
-and a fresh pipeline has random weights drawn from a seeded torch.Generator.
-The embedder and the LogReg head are frozen; the UNet is what training
-updates, in place.
+and a fresh pipeline has random weights drawn from a seeded torch.Generator
+(embedder, UNet, LogReg head, then the feature decoder, so that the modules
+drawn before it keep their weights). The embedder and the LogReg head are
+frozen; a mask decoder (`unet` or `feat_decoder`) is what training updates,
+in place.
 
 Every serving entry point runs under `torch.inference_mode()`. The stages
 the trainer differentiates through (`embed`, `stft_stage`, `istft_stage`)
@@ -31,6 +35,7 @@ from xai_audio_deepfakes_tpu_torch.config import (
     check_supported,
 )
 from xai_audio_deepfakes_tpu_torch.device import resolve_device
+from xai_audio_deepfakes_tpu_torch.models.feat_decoder import FeatureMaskDecoder
 from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply, logreg_init
 from xai_audio_deepfakes_tpu_torch.models.unet import UNetMaskDecoder, init_unet_
 from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
@@ -56,7 +61,8 @@ class ExplainOutput(NamedTuple):
 
 
 class ADDvisorPipeline:
-    """Owns the embedder, the UNet and the LogReg head on one device.
+    """Owns the embedder, the UNet, the LogReg head and the feature decoder
+    on one device.
 
     `device` defaults to "cuda" and raises when CUDA is missing; pass
     device="cpu" to run the kernels' plain versions on the CPU.
@@ -78,6 +84,7 @@ class ADDvisorPipeline:
         self.encoder.requires_grad_(False)
         self.unet = init_unet_(UNetMaskDecoder(cfg.unet).to(self.device), gen).eval()
         self.logreg = logreg_init(cfg.embedder.hidden_size, gen, self.device)
+        self.feat_decoder = FeatureMaskDecoder(cfg.feat_decoder, gen, self.device).eval()
         self.quant_scales: dict | None = None
 
     def _as_input(self, wav) -> torch.Tensor:
@@ -154,26 +161,42 @@ class ADDvisorPipeline:
         return pad_mask_to_spec(mask, magnitude.shape[-2], magnitude.shape[-1])
 
     @torch.inference_mode()
+    def predict_mask_from_features(self, feats: torch.Tensor,
+                                   magnitude: torch.Tensor) -> torch.Tensor:
+        """Features [B, T, H] -> feature decoder -> full-spec mask, zero on
+        the bins above `freq_bins`. T must be the spectrogram's frame count
+        or less (`pad_mask_to_spec` raises otherwise)."""
+        mask = self.feat_decoder(feats)
+        return pad_mask_to_spec(mask, magnitude.shape[-2], magnitude.shape[-1])
+
+    @torch.inference_mode()
     def explain(self, wav, decoder: str = "unet",
                 masking: MaskingConvention | None = None) -> ExplainOutput:
-        """The explanation path: the mask depends only on the magnitude, so
-        the clean clip and both masked re-syntheses share one 3B-batch
-        embedder pass."""
-        if decoder == "features":
-            raise NotImplementedError(
-                'explain(decoder="features") is not ported yet (ROADMAP.md Queue 1 item 5)'
-            )
-        if decoder != "unet":
+        """The explanation path. With the UNet the mask depends only on the
+        magnitude, so the clean clip and both masked re-syntheses share one
+        3B-batch embedder pass. With the feature decoder the clean clip is
+        embedded once at batch B, its features serving the decoder and the
+        clean probability, and the masked clips share one 2B-batch pass."""
+        if decoder not in ("unet", "features"):
             raise ValueError(f"unknown decoder {decoder!r}")
         masking = self.cfg.masking if masking is None else masking
         wav = self._as_input(wav)
         _, _, mag, phase = self.spectrogram(wav)
-        mask = self.predict_mask(mag)
+        if decoder == "unet":
+            feats = None
+            mask = self.predict_mask(mag)
+        else:
+            feats = self.features(wav)
+            mask = self.predict_mask_from_features(feats, mag)
         rel_mag, irr_mag = apply_mask(mask, mag, masking)
         rel_wav = self.istft(*remask_complex(rel_mag, phase))
         irr_wav = self.istft(*remask_complex(irr_mag, phase))
         b = wav.shape[0]
-        _, probs = self.classify(torch.cat([wav, rel_wav, irr_wav], dim=0))
+        if feats is None:
+            _, probs = self.classify(torch.cat([wav, rel_wav, irr_wav], dim=0))
+        else:
+            _, probs_both = self.classify(torch.cat([rel_wav, irr_wav], dim=0))
+            probs = torch.cat([self.classify_features(feats)[1], probs_both])
         return ExplainOutput(
             mask=mask, magnitude=mag, phase=phase,
             relevant_wav=rel_wav, irrelevant_wav=irr_wav,

@@ -1,9 +1,10 @@
-"""Mask-decoder training (port of `train/train_addvisor.py`,
-decoder="unet").
+"""Mask-decoder training (port of `train/train_addvisor.py`).
 
 Training semantics, as in the JAX package:
-  * UNet on the STFT magnitude, LMAC loss with sigmoid(detector logits on
-    the clean clip) as the target
+  * decoder="unet": the UNet on the STFT magnitude; decoder="features": the
+    feature decoder on the clean clip's SSL features, whose one embed also
+    gives the target (no BatchNorm, so no batch statistics)
+  * LMAC loss with sigmoid(detector logits on the clean clip) as the target
   * two Adam optimisers: lr 3e-5 for the decoder, lr 1e-4 for the raw loss
     weights
   * post-step renorm of w to sum = len(w)
@@ -12,9 +13,10 @@ Training semantics, as in the JAX package:
 
 Differences from the JAX step, which is a pure function of a state pytree:
 the state here owns the decoder module and the optimisers, and a step
-updates them in place (the decoder is the pipeline's own `unet`, so the
-pipeline explains with the trained decoder afterwards). The STFT and the
-clean target run under `no_grad`, outside the graph.
+updates them in place (the decoder is the pipeline's own `unet` or
+`feat_decoder`, so the pipeline explains with the trained decoder
+afterwards). The STFT and the clean embed run under `no_grad`, outside the
+graph.
 """
 
 from __future__ import annotations
@@ -39,17 +41,18 @@ from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 from xai_audio_deepfakes_tpu_torch.train.checkpoints import load_checkpoint
 
 
-def _check_decoder(decoder: str) -> None:
+def decoder_params_key(decoder: str) -> str:
+    """The parameter-tree key (and pipeline attribute) of the trainable mask
+    decoder."""
+    if decoder == "unet":
+        return "unet"
     if decoder == "features":
-        raise NotImplementedError(
-            'training decoder="features" is not ported yet (ROADMAP.md Queue 1 item 5)')
-    if decoder != "unet":
-        raise ValueError(f"unknown decoder {decoder!r}")
+        return "feat_decoder"
+    raise ValueError(f"unknown decoder {decoder!r}")
 
 
 def _check_trainable(cfg: PipelineConfig, decoder: str) -> None:
-    _check_decoder(decoder)
-    if cfg.unet.dtype != "float32":
+    if decoder_params_key(decoder) == "unet" and cfg.unet.dtype != "float32":
         raise NotImplementedError(
             "training the bf16 UNet (UNetConfig.dtype=bfloat16) is not ported yet "
             "(ROADMAP.md Queue 1 item 7)")
@@ -87,16 +90,23 @@ class AddvisorTrainState:
 
 
 def init_train_state(pipe: ADDvisorPipeline, decoder: str = "unet") -> AddvisorTrainState:
-    """A fresh state over the pipeline's own UNet (trained in place)."""
+    """A fresh state over the pipeline's own mask decoder (trained in
+    place)."""
     _check_trainable(pipe.cfg, decoder)
+    model = getattr(pipe, decoder_params_key(decoder))
     w_raw = init_w_raw(pipe.cfg.loss, pipe.device)
-    opt_model, opt_w = make_optimizers(pipe.cfg, pipe.unet.parameters(), w_raw)
-    return AddvisorTrainState(pipe.unet, w_raw, opt_model, opt_w)
+    opt_model, opt_w = make_optimizers(pipe.cfg, model.parameters(), w_raw)
+    return AddvisorTrainState(model, w_raw, opt_model, opt_w)
 
 
 def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
                     mark: Callable[[str], None] | None = None) -> Callable:
     """-> step(state, wav, l1_scale=None) -> (state, aux dict).
+
+    With decoder="features" the clean clip is embedded once (by the
+    pipeline's own encoder: the decoder reads these features, so
+    `target_gelu` does not apply), and the features serve as the decoder's
+    input and, through the LogReg head, as the target.
 
     `wav` is [B, num_samples]. The step updates `state` in place and returns
     it with `aux`: the detached total loss, l_in, l_out, l1, `loss_vec`
@@ -109,11 +119,12 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     _check_trainable(pipe.cfg, decoder)
     cfg = pipe.cfg
     mark = mark or (lambda name: None)
-    # The clean embed only produces the gradient-free target, so it may take
-    # another GELU (TrainConfig.target_gelu): a second module over the same
-    # weights.
+    features = decoder_params_key(decoder) == "feat_decoder"
+    # With the UNet the clean embed only produces the gradient-free target,
+    # so it may take another GELU (TrainConfig.target_gelu): a second module
+    # over the same weights.
     target_encoder = (pipe.encoder.with_gelu(cfg.train.target_gelu)
-                      if cfg.train.target_gelu != "exact" else None)
+                      if cfg.train.target_gelu != "exact" and not features else None)
 
     def classify_wav(wav: torch.Tensor, encoder=None) -> torch.Tensor:
         feats = pipe.embed(wav, encoder)
@@ -123,13 +134,18 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
         wav = to_device(wav, pipe.device)
         with torch.no_grad():  # the collate stage: STFT and the clean target
             _, _, mag, phase = pipe.stft_stage(wav)
-            class_pred = torch.sigmoid(classify_wav(wav, target_encoder))
-            mag_c = crop_spec(mag, cfg.unet.freq_bins, cfg.unet.frames)
+            if features:
+                dec_in = pipe.embed(wav)
+                logits = logreg_apply(pipe.logreg, dec_in.mean(dim=1))[0]
+            else:
+                logits = classify_wav(wav, target_encoder)
+                dec_in = crop_spec(mag, cfg.unet.freq_bins, cfg.unet.frames)
+            class_pred = torch.sigmoid(logits)
         mark("collate")
 
         state.decoder.train()
         try:
-            mask = state.decoder(mag_c)
+            mask = state.decoder(dec_in)
         finally:
             state.decoder.eval()
         total, losses, _ = lmac_loss(state.w_raw, mask, mag, phase, class_pred, classify_wav,
@@ -257,11 +273,17 @@ def train_addvisor(
 
 def restore_decoder_for_inference(path: str, pipe: ADDvisorPipeline,
                                   decoder: str = "unet") -> torch.nn.Module:
-    """Load the mask decoder (parameters and BatchNorm statistics) of a
-    checkpoint into the pipeline's UNet and return it. Trainer checkpoints
-    carry the full train state (`train/checkpoints.py`); a bare decoder state
-    dict, with or without the DDP `module.` prefix, loads too."""
-    _check_decoder(decoder)
+    """Load the mask decoder of a checkpoint (the UNet's parameters and
+    BatchNorm statistics, or the feature decoder's parameters) into the
+    pipeline's own and return it. Trainer checkpoints carry the full train
+    state (`train/checkpoints.py`); a bare decoder state dict, with or
+    without the DDP `module.` prefix, loads too."""
+    key = decoder_params_key(decoder)
     sd = load_checkpoint(path, pipe.device)
-    load_reference_state_dict(pipe.unet, sd.get("decoder", sd))
-    return pipe.unet.eval()
+    sd = sd.get("decoder", sd)
+    model = getattr(pipe, key)
+    if key == "unet":
+        load_reference_state_dict(model, sd)
+    else:
+        model.load_state_dict({k.removeprefix("module."): v for k, v in sd.items()})
+    return model.eval()
