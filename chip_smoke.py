@@ -14,22 +14,23 @@ PyTorch built for CUDA. It
     (`cuobjdump -sass`), neither of which may be 0;
  3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
     E conv+LayerNorm+GELU) against its plain PyTorch version at every batch
-    the driven paths give it (`EMBED_BATCHES`: embedder batches 2, 8, 16 and
-    24 for A, D and E; `SPEC_BATCHES`: 2 and 8 clips for B and C), in f32
-    and in the working dtype, each beside its tolerance, and times, at the
-    UNet explain's shapes (8 clips, embedder batch 24), the kernel, the plain version
-    and one PyTorch library call that computes the same function (timed
-    only; the port never calls it) by CUDA events; for every kernel also the
-    device time per call of the kernel and of the library call from a
-    torch.profiler trace (`kernel_device_ms`, `library_device_ms`; D and E
-    summed over their shapes, E's with the wrapper's weight-image copy),
-    which leave out the host's per-call overhead (a call whose traces show
-    no kernel three times over is timed by CUDA events instead and named on
-    a line before the `kernels` line); D is held at each of the
-    seven frontend shapes in both dtypes and both GELU forms, with its bf16
-    elements off by any step and by more than one step (at most 0.1%), and
-    timed layer by layer (ms, device ms, GB/s against 3.35 TB/s, beside the
-    library's), with ptxas' registers and spills of its instantiations;
+    the driven paths give it (`EMBED_BATCHES`: embedder batches 1, 2, 4, 8,
+    16 and 24 for A, D and E; `SPEC_BATCHES`: 1, 2, 8 and 16 clips for B
+    and C), in f32 and in the working dtype, each beside its tolerance, and
+    times, at the UNet explain's shapes (8 clips, embedder batch 24), the
+    kernel, the plain version and one PyTorch library call that computes
+    the same function (timed only; the port never calls it) by CUDA events;
+    for every kernel also the device time per call of the kernel and of the
+    library call from a torch.profiler trace (`kernel_device_ms`,
+    `library_device_ms`; D and E summed over their shapes, E's with the
+    wrapper's weight-image copy), which leave out the host's per-call
+    overhead (a call whose traces show no kernel three times over is timed
+    by CUDA events instead and named on a line before the `kernels` line);
+    D is held at each of the seven frontend shapes in both dtypes and both
+    GELU forms, with its bf16 elements off by any step and by more than one
+    step (at most 0.1%), and timed layer by layer (ms, device ms, GB/s
+    against 3.35 TB/s, beside the library's), with ptxas' registers and
+    spills of its instantiations;
  4. holds the backward of A, C, D and E (forward through the kernel, backward
     by recomputation) against autograd through the plain version, at the
     training step's shapes (2 clips), in f32 and, for A, D and E, in bf16 as
@@ -43,13 +44,13 @@ PyTorch built for CUDA. It
     `fused_conv=True` (A 9, B 1, C 2, D 1, E 6), whose probabilities must
     agree with the first run's within 0.05;
  6. takes LMAC training steps of the UNet decoder at full width and depth
-    (bf16 embedder with both fused frontend kernels, f32 UNet, 2 clips):
+    (bf16 embedder with both fused frontend kernels, f32 UNet, 2 clips;
+    cuDNN's deterministic algorithms, as `make_train_step` takes them):
     launches per step A 27, B 1, C 2, D 3, E 18, finite losses, loss weights
     renormalised to sum 3, decoder changed, embedder bit-identical; prints
     step ms, its forward / backward / optimiser split and peak memory;
- 7. runs a tiny f32 explain and a tiny f32 training step on the card and on
-    the CPU with the same weights and compares them (mask 1e-5, waveforms
-    2e-4, probabilities 1e-4; losses 1e-4, decoder gradients 1e-3 of their
+ 7. runs a tiny f32 training step on the card and on the CPU with the same
+    weights and compares them (losses 1e-4, decoder gradients 1e-3 of their
     scale, loss weights 1e-5);
  8. runs the JAX package's serving configurations at full width, B=8: the
     entry point's (`EmbedderConfig(dtype="bfloat16")`, unfused frontend
@@ -62,6 +63,8 @@ PyTorch built for CUDA. It
     configuration (with `quant_conv` and `UNetConfig.quant` once, and
     `fused_attention=False`) on the card against the CPU, at bars set by
     each configuration's own distance from the f32 port (`run_tiny_configs`);
+    and saliency through `run_attribution_metrics` on `bench.py`'s int8
+    embedder at batch 2 (A 36, a finite, non-zero map);
  9. runs `explain(decoder="features")` at full width, B=8, with both
     frontends (A 18, B 1, C 2, D 14; or D 2, E 12), its stage split and
     peak memory; `run_explanation_metrics` over 3 batches of 8 with each
@@ -77,16 +80,35 @@ PyTorch built for CUDA. It
     (1.7 GB f32 at full width) and, at tiny width, as `pytorch_model.bin`,
     imports it through `params_from_hf_dir` and `convert.load_encoder`, and
     requires the explain to equal the source weights' bit for bit;
-11. prints how far the decoder gradients of two identical no-remat steps
-    drift with cuDNN's default algorithms, then, with its deterministic
-    ones, takes three training steps with remat off, "full" and "dots" (step ms,
-    peak memory, launches with the recomputed kernel A, the first step's
-    decoder gradients against remat off at 1e-3 of their scale), and one
+11. takes two identical no-remat training steps through `make_train_step`
+    and requires bit-equal losses and decoder gradients, then three
+    training steps with remat off, "full" and "dots" (step ms, peak memory,
+    launches with the recomputed kernel A, the first step's decoder
+    gradients against remat off at 1e-3 of their scale), and one
     feature-decoder step (A 27, B 1, C 2, D 3, E 18); and holds a tiny
     feature-decoder explain (one attention block) and a tiny f32
     `input_x_gradient` on the card against the CPU (mask 1e-5, waveforms
     2e-4, probabilities 1e-4; the map 1e-3 of its largest magnitude);
-12. prints the `kernels` JSON line and, last, the device line. A kernel's
+12. drives the detector and its data at full width: `datagen` as the CLI
+    runs it (the entry point's configuration; 8 seeded clips and noise
+    twins written as 16-bit wavs, the twins at 22.05 kHz, read back by
+    `extract_wavs` and `load_audio`, which decoder served printed;
+    `generate_band_swap_features` -> X [72, 1920], launches per pair A 18,
+    B 2, C 1, ms per pair and its device split), `embed` (`AudioBatcher` at
+    batch 4, pooled features and probabilities), the anyband corpus
+    (`make_anyband_corpus(n=16)`, `detector_corpus_anyband`) on the card
+    against the CPU (2e-4, labels equal), embedded at batch 8 in the kernel
+    D configuration, `train_detector` (accuracy, EER, L-BFGS steps,
+    seconds), the head saved, reloaded and installed in the pipeline
+    (`classify` against the fitted head, 1e-6), `per_clip_band_stats` over
+    two explains' masks (finite); `fit_logreg` on [4096, 1920] against
+    scipy's float64 L-BFGS-B (cosine > 0.999, objective 1e-4 relative); and
+    tiny `band_spliced_waveforms` (2e-4) and band-swap features (5e-4) on
+    the card against the CPU;
+13. last of the phases, a tiny f32 explain on the card 20 times against
+    one on the CPU with the same weights (mask 1e-5, waveforms 2e-4,
+    probabilities 1e-4), the largest deviations printed;
+14. prints the `kernels` JSON line and, last, the device line. A kernel's
     `launches` are those of every driven path together, each path counted
     from zero and named in `launches_by_path`; its `body` names the design
     that ran.
@@ -100,18 +122,22 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 BATCH = 8  # clips per explain; the embedder runs 3 * BATCH
+CORPUS = 16  # clips of the anyband detector corpus
 # the batches the driven paths give the kernels, each held at all of them:
-# the embedder (A, D, E) runs at 2 (training steps, attribution), BATCH (the
-# feature decoder's clean embed), 2 * BATCH (its masked clips) and 3 * BATCH
-# (the UNet explain); the STFT and iSTFT (B, C) at 2 and BATCH
-EMBED_BATCHES = (2, BATCH, 2 * BATCH, 3 * BATCH)
-SPEC_BATCHES = (2, BATCH)
+# the embedder (A, D, E) runs at 1 (datagen's real clip), 2 (training steps,
+# attribution), 4 (the embed loop), BATCH (datagen's 8 band splices, the
+# corpus embed, the feature decoder's clean embed), 2 * BATCH (its masked
+# clips) and 3 * BATCH (the UNet explain); the STFT and iSTFT (B, C) at 1
+# (datagen's clip and twin), 2, BATCH (the splices' iSTFT) and CORPUS
+EMBED_BATCHES = (1, 2, 4, BATCH, 2 * BATCH, 3 * BATCH)
+SPEC_BATCHES = (1, 2, BATCH, CORPUS)
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over the
 # peak rate of its input type
@@ -203,8 +229,6 @@ def check_sass(lib_path: Path) -> None:
     """Count the tensor-core instructions (HMMA, or HGMMA for wgmma) of the
     bf16 bodies of attention (A) and conv+LN+GELU (E) in the built library's
     SASS; fails if either has none."""
-    import shutil
-
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if tool is None:
@@ -292,7 +316,8 @@ def check_stft(torch, cfg, rows: list) -> None:
     sc, n = cfg.stft, cfg.audio.num_samples
     g = torch.Generator(device="cuda").manual_seed(2)
     err = err_c = 0.0
-    for b in SPEC_BATCHES:  # the loop's last, BATCH, is timed
+    timed = {}  # BATCH's inputs
+    for b in SPEC_BATCHES:
         x = torch.randn(b, n, device="cuda", generator=g) * 0.3
         re, im = stft(x, sc)
         torch.cuda.synchronize()
@@ -311,6 +336,9 @@ def check_stft(torch, cfg, rows: list) -> None:
         err_c = max(err_c, check_close(f"C istft, randn spectra, batch {b}",
                                        istft(re_r, im_r, sc, n),
                                        istft_plain(re_r, im_r, sc, n), 2e-4))
+        if b == BATCH:
+            timed = dict(x=x, re_m=re_m, im_m=im_m)
+    x, re_m, im_m = timed["x"], timed["re_m"], timed["im_m"]
     t = re.shape[-1]
     win = device_constant("window", x.device, sc.window, sc.win_length, sc.n_fft)
     def stft_lib():
@@ -642,7 +670,8 @@ def check_backwards_bf16(torch, cfg) -> None:
     from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu, ln_gelu_plain
 
     e, bf16 = cfg.embedder, torch.bfloat16
-    b, t, nh, eps = EMBED_BATCHES[0], cfg.audio.num_frames(cfg.stft), e.num_heads, e.layer_norm_eps
+    b, t = cfg.train.batch_size, cfg.audio.num_frames(cfg.stft)
+    nh, eps = e.num_heads, e.layer_norm_eps
     lengths = frontend_lengths(cfg)
     g = torch.Generator(device="cuda").manual_seed(8)
     qkv = [x.to(bf16) for x in attention_inputs(torch, g, b, t, nh, 120, 128, q_scale=120**-0.5)]
@@ -856,8 +885,14 @@ def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool =
     return launches, probs.flatten().cpu()
 
 
-def run_tiny_reference(torch) -> None:
-    """Tiny f32 explain on the card against the same weights on the CPU."""
+TINY_REPEATS = 20  # card explains held against one CPU explain (the mask miss, ROADMAP Queue 3)
+
+
+def run_tiny_reference(torch, repeats: int = TINY_REPEATS) -> None:
+    """Tiny f32 explain on the card, `repeats` times, against the same
+    weights on the CPU: every run at the bars; the largest deviation of each
+    output over the runs is printed, and how many runs' masks were bit for
+    bit the first's."""
     from xai_audio_deepfakes_tpu_torch.config import (
         AudioConfig,
         EmbedderConfig,
@@ -875,11 +910,25 @@ def run_tiny_reference(torch) -> None:
     cpu.logreg = {k: v.cpu() for k, v in gpu.logreg.items()}
     g = torch.Generator().manual_seed(6)
     wav = torch.randn(2, cfg.audio.num_samples, generator=g) * 0.1
-    out_gpu, out_cpu = gpu.explain(wav.cuda()), cpu.explain(wav)
-    torch.cuda.synchronize()
-    for name, atol in (("mask", 1e-5), ("relevant_wav", 2e-4), ("irrelevant_wav", 2e-4),
-                       ("probs_clean", 1e-4), ("probs_relevant", 1e-4), ("probs_irrelevant", 1e-4)):
-        check_close(f"tiny explain {name}", getattr(out_gpu, name).cpu(), getattr(out_cpu, name), atol)
+    out_cpu = cpu.explain(wav)
+    bars = (("mask", 1e-5), ("relevant_wav", 2e-4), ("irrelevant_wav", 2e-4),
+            ("probs_clean", 1e-4), ("probs_relevant", 1e-4), ("probs_irrelevant", 1e-4))
+    worst, first_mask, same = dict.fromkeys(dict(bars), 0.0), None, 0
+    for _ in range(repeats):
+        out_gpu = gpu.explain(wav.cuda())
+        torch.cuda.synchronize()
+        for name, atol in bars:
+            got, want = getattr(out_gpu, name).cpu(), getattr(out_cpu, name)
+            err = float((got - want).abs().max())
+            worst[name] = max(worst[name], err)
+            if not err <= atol:
+                check_close(f"tiny explain {name}", got, want, atol)  # prints and fails
+        mask = out_gpu.mask.cpu()
+        first_mask = mask if first_mask is None else first_mask
+        same += bool(torch.equal(mask, first_mask))
+    print(f"tiny explain x{repeats} on the card vs the CPU, largest deviations: "
+          + ", ".join(f"{k} {v:.3e} (bar {dict(bars)[k]:g})" for k, v in worst.items())
+          + f"; masks bit for bit the first run's: {same} of {repeats}")
 
 
 def run_training(torch, cfg) -> dict:
@@ -1222,6 +1271,40 @@ def run_attribution(torch, pipe) -> dict:
     return paths
 
 
+def run_int8_attribution(torch, cfg) -> dict:
+    """Saliency through `run_attribution_metrics` on `bench.py`'s default
+    (int8 embedder) at batch 2: a finite, non-zero map, launches A 9 per
+    embedder forward (one gradient evaluation and three `classify` calls),
+    ms. Returns {path: launches}."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_attribution_metrics
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    pipe = build_pipeline(torch, cfg)
+    wav = (np.random.default_rng(5).standard_normal((2, cfg.audio.num_samples))
+           * 0.1).astype(np.float32)
+    run_attribution_metrics(pipe, [wav], method="saliency")  # warm-up
+    torch.cuda.synchronize()
+    seen = []
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = run_attribution_metrics(pipe, [wav], method="saliency",
+                                     artifact_fn=lambda *a: seen.append(a))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    mask = torch.from_numpy(seen[0][1])
+    print(f"attribution saliency through bench.py's int8 embedder at batch 2: {ms:.1f} ms, "
+          f"launches {launches}, mask max {float(mask.max()):.3f}, result {json.dumps(result)}")
+    if launches != launches_of(a=cfg.embedder.num_layers * 4):
+        fail(f"int8 attribution: launch counts {launches}")
+    if not bool(torch.isfinite(mask).all()) or not float(mask.abs().max()) > 0:
+        fail("int8 attribution: the map is not finite or is zero")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"attribution_saliency_int8": launches}
+
+
 def check_attribution_reproducible(torch, pipe, wav) -> None:
     """The harness's saliency map twice: equal bit for bit, since its
     gradients take cuDNN's deterministic algorithms. The same gradient
@@ -1391,16 +1474,13 @@ def run_hf_import(torch, cfg, clips: int, fmt: str, name: str) -> dict:
 
 
 def run_training_remat(torch, cfg) -> dict:
-    """Three training steps at 2 clips with remat off, "full" and "dots"
-    (same seed, same clips): step ms, peak memory, launches (the
+    """Two identical no-remat steps through `make_train_step` (which takes
+    cuDNN's deterministic algorithms): losses and decoder gradients bit for
+    bit equal. Then three training steps at 2 clips with remat off, "full"
+    and "dots" (same seed, same clips): step ms, peak memory, launches (the
     checkpointed layers rerun kernel A in the backward pass: A 27 + 18 a
     step) and the first step's decoder gradients against remat off (1e-3 of
-    their scale). cuDNN takes its deterministic algorithms in this phase:
-    its default backward convolutions may sum in any order, so that two
-    identical steps need not agree, and through the bf16 embedder such a
-    spread would hide what remat does. How far two identical no-remat steps
-    drift with the default algorithms is measured first and printed.
-    Returns {path: launches of the three steps}."""
+    their scale). Returns {path: launches of the three steps}."""
     import numpy as np
 
     b = cfg.train.batch_size
@@ -1408,20 +1488,20 @@ def run_training_remat(torch, cfg) -> dict:
     wavs = [(rng.standard_normal((b, cfg.audio.num_samples)) * 0.1).astype(np.float32)
             for _ in range(3)]
     paths, first_grads = {}, {}
-    # two identical no-remat steps with cuDNN's default algorithms
-    default = [_remat_steps(torch, cfg, wavs[:1], "off")[1] for _ in range(2)]
-    spread = float((default[0] - default[1]).abs().max()) / float(default[1].abs().max())
-    print(f"training remat off twice with cuDNN's default algorithms: the first step's "
-          f"decoder gradients differ by {spread:.3e} of their largest magnitude "
-          f"(measured, no bar)")
-    del default
-    torch.backends.cudnn.deterministic = True
-    try:
-        for policy in ("off", "full", "dots"):
-            paths[f"train_remat_{policy}_3_steps"], first_grads[policy] = _remat_steps(
-                torch, cfg, wavs, policy)
-    finally:
-        torch.backends.cudnn.deterministic = False
+    twice = [_remat_steps(torch, cfg, wavs[:1], "off")[1:] for _ in range(2)]
+    same_loss = twice[0][1] == twice[1][1]
+    same_grads = bool(torch.equal(twice[0][0], twice[1][0]))
+    spread = float((twice[0][0] - twice[1][0]).abs().max()) / float(twice[1][0].abs().max())
+    print(f"training remat off twice through make_train_step: losses "
+          f"{'equal' if same_loss else 'DIFFERENT'} ({twice[0][1]!r}, {twice[1][1]!r}), decoder "
+          f"gradients bit for bit {'equal' if same_grads else 'DIFFERENT'} (spread {spread:.3e} "
+          f"of their largest magnitude)")
+    if not (same_loss and same_grads):
+        fail("two identical training steps gave different losses or decoder gradients")
+    del twice
+    for policy in ("off", "full", "dots"):
+        paths[f"train_remat_{policy}_3_steps"], first_grads[policy], _ = _remat_steps(
+            torch, cfg, wavs, policy)
     ref = first_grads["off"].cpu()
     for policy in ("full", "dots"):
         check_close(f"first step's decoder gradients, remat {policy} vs off",
@@ -1431,7 +1511,7 @@ def run_training_remat(torch, cfg) -> dict:
 
 def _remat_steps(torch, cfg, wavs, policy: str):
     """Training steps on `wavs` from a fresh seeded pipeline with remat
-    `policy` -> (launches, the first step's decoder gradients)."""
+    `policy` -> (launches, the first step's decoder gradients, its loss)."""
     from xai_audio_deepfakes_tpu_torch.ops import _cuda
     from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
 
@@ -1460,15 +1540,15 @@ def _remat_steps(torch, cfg, wavs, policy: str):
     want = launches_of(a=n * (3 * e.num_layers + recompute), b=n, c=2 * n,
                        d=3 * n * (len(e.conv_dim) - fusable), e=3 * n * fusable)
     steady = f" (steady {sum(times[1:]) / (n - 1):.1f})" if n > 1 else ""
-    print(f"training remat {policy}, {n} steps at {b} clips, deterministic cuDNN "
-          f"{torch.backends.cudnn.deterministic}: step ms {[round(t, 1) for t in times]}{steady}, "
+    print(f"training remat {policy}, {n} steps at {b} clips: step ms "
+          f"{[round(t, 1) for t in times]}{steady}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, "
           f"first loss {first_loss!r}")
     if launches != want:
         fail(f"training remat {policy}: launch counts {launches} != {want}")
     del pipe, state, step
     torch.cuda.empty_cache()
-    return launches, first_grad
+    return launches, first_grad, first_loss
 
 
 def run_features_training(torch, cfg) -> dict:
@@ -1585,6 +1665,325 @@ def run_tiny_features_and_attribution(torch) -> None:
     check_close("tiny input_x_gradient map", maps[0], maps[1], 1e-3 * float(maps[1].abs().max()))
 
 
+PAIRS = 8  # real clips and twins of the datagen phase
+
+
+def write_pair_corpus(root: Path, cfg) -> list[str]:
+    """PAIRS seeded speech-like clips as 16-bit wavs at 16 kHz under
+    root/real and wideband-noise twins at 22.05 kHz under root/vocoded (the
+    CLI's `<name>_vocoded.wav`), and a metadata file of the names; returns
+    the names as `extract_wavs` reads them back."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.data.datasets import extract_wavs
+    from xai_audio_deepfakes_tpu_torch.data.io import write_wav
+    from xai_audio_deepfakes_tpu_torch.data.synthetic import noise_clips, speechlike_clips
+
+    rng = np.random.default_rng(20)
+    real = speechlike_clips(rng, PAIRS, cfg.audio.num_samples)
+    twins = noise_clips(rng, PAIRS, int(cfg.audio.clip_seconds * 22050), rms=0.25)
+    names = [f"clip_{i}.wav" for i in range(PAIRS)]
+    for name, r, t in zip(names, real, twins):
+        write_wav(str(root / "real" / name), r, 16000)
+        write_wav(str(root / "vocoded" / f"{name}_vocoded.wav"), t, 22050)
+    (root / "metadata.csv").write_text("".join(f"{name},bonafide\n" for name in names))
+    return extract_wavs(str(root / "metadata.csv"))
+
+
+def run_datagen_and_embed(torch, root: Path) -> dict:
+    """The `datagen` and `embed` commands' sequence of calls at full width in
+    the CLI's default configuration (`EmbedderConfig(dtype="bfloat16")`, the
+    unfused frontend): seeded wavs written and read back through
+    `extract_wavs` and `load_audio` (the twins resampled from 22.05 kHz),
+    `generate_band_swap_features` over the 8 pairs -> X [72, 1920] with
+    8 zeros and 64 ones in y, launches per pair A 18, B 2, C 1, D 0, E 0,
+    ms per pair with the device split (splice, embed at 1, embed at 8); then
+    `AudioBatcher` at batch 4 over the 8 real files, pooled features and
+    `classify_features` probabilities, finite and in (0, 1)."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
+    from xai_audio_deepfakes_tpu_torch.data import native_io
+    from xai_audio_deepfakes_tpu_torch.data.bandswap import (
+        band_spliced_waveforms,
+        generate_band_swap_features,
+    )
+    from xai_audio_deepfakes_tpu_torch.data.datasets import AudioBatcher
+    from xai_audio_deepfakes_tpu_torch.data.io import load_audio
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+
+    cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16"))
+    e, h = cfg.embedder, cfg.embedder.hidden_size
+    t0 = time.perf_counter()
+    names = write_pair_corpus(root, cfg)
+    print(f"datagen: {PAIRS} clips and twins written in {time.perf_counter() - t0:.3f} s; wav "
+          f"decoder: {'native ' + native_io.LIBRARY.name if native_io.available() else 'scipy'}")
+
+    def pairs():  # cmd_datagen's reader
+        for name in names:
+            yield (load_audio(str(root / "real" / name))[0],
+                   load_audio(str(root / "vocoded" / f"{name}_vocoded.wav"))[0])
+
+    t0 = time.perf_counter()
+    clips = list(pairs())
+    read_s = time.perf_counter() - t0
+    pipe = build_pipeline(torch, cfg)
+
+    def embed_fn(w):
+        return pipe.features(w).mean(dim=1)
+
+    generate_band_swap_features(clips[:1], embed_fn)  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    logs: list = []
+    t0 = time.perf_counter()
+    x, y = generate_band_swap_features(pairs(), embed_fn, log_fn=logs.append)
+    wall = time.perf_counter() - t0  # the features come to the host: the device is done
+    launches = dict(_cuda.LAUNCHES)
+    per_pair = launches_of(a=2 * e.num_layers, b=2, c=1)
+    print(f"datagen launches for {PAIRS} pairs: {launches}; leakage warnings {logs}")
+    if launches != {k: PAIRS * v for k, v in per_pair.items()}:
+        fail(f"datagen: launch counts {launches} != {PAIRS} x {per_pair}")
+    if x.shape != (9 * PAIRS, h) or x.dtype != np.float32 or not np.isfinite(x).all():
+        fail(f"datagen: X {x.shape} {x.dtype}, finite {bool(np.isfinite(x).all())}")
+    if (y == 0).sum() != PAIRS or (y == 1).sum() != 8 * PAIRS:
+        fail(f"datagen: labels {np.bincount(y)}")
+    real, twin = (torch.from_numpy(a).cuda() for a in clips[0])
+    with torch.inference_mode():
+        waves = band_spliced_waveforms(real, twin, cfg.stft)[0]
+        split = {"splice": time_ms(lambda: band_spliced_waveforms(real, twin, cfg.stft), 5),
+                 "embed_1": time_ms(lambda: embed_fn(real[None]), 5),
+                 "embed_8": time_ms(lambda: embed_fn(waves), 5)}
+    print(f"datagen at full width (CLI default: bf16, unfused frontend): X {list(x.shape)}, "
+          f"y {np.bincount(y).tolist()}; {wall / PAIRS * 1e3:.1f} ms a pair with the wav reads "
+          f"({read_s / PAIRS * 1e3:.1f} ms a pair alone), "
+          f"{9 * PAIRS / wall:.1f} embedded clips/s; device ms a pair: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    batcher = AudioBatcher(names, 4, root=str(root / "real"), shuffle=False,
+                           drop_remainder=False)
+    _cuda.reset_launches()
+    pooled, probs = [], []
+    t0 = time.perf_counter()
+    for wav in batcher:  # cmd_embed's loop
+        feats = pipe.features(wav)
+        pooled.append(feats.mean(dim=1).cpu())
+        probs.append(pipe.classify_features(feats)[1].cpu())
+    embed_s = time.perf_counter() - t0
+    embed_launches = dict(_cuda.LAUNCHES)
+    pooled, probs = torch.cat(pooled), torch.cat(probs)
+    print(f"embed, AudioBatcher at batch 4 over {PAIRS} files: {embed_s * 1e3:.1f} ms, "
+          f"launches {embed_launches}, pooled {list(pooled.shape)}, probs "
+          f"{[round(v, 4) for v in probs.flatten().tolist()]}")
+    if embed_launches != launches_of(a=e.num_layers * len(batcher)):
+        fail(f"embed: launch counts {embed_launches}")
+    if tuple(pooled.shape) != (PAIRS, h) or not bool(torch.isfinite(pooled).all()):
+        fail("embed: pooled features of the wrong shape or not finite")
+    if not bool(((probs > 0) & (probs < 1)).all()):
+        fail("embed: a probability outside (0, 1)")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"datagen_per_pair": {k: v // PAIRS for k, v in launches.items()},
+            "embed_4": embed_launches}
+
+
+def run_detector_corpus(torch, root: Path) -> dict:
+    """The anyband detector corpus (`make_anyband_corpus(n=16)`,
+    `detector_corpus_anyband` with the sweep and 4 random masks) on the card
+    and on the CPU from the same seeds: clips within the STFT bar 2e-4,
+    labels equal. Embedded at batch 8 in the kernel D configuration
+    (`fused_ln_gelu=True`; the ragged tail zero-padded to 8), the detector
+    fit and evaluated by `train_detector`, its head saved, loaded back and
+    installed in the pipeline: `classify` on the first 8 held-out clips
+    agrees with the fitted head on their corpus features within 1e-6 (the
+    same kernels at the same batch shape; a clip's features do not depend
+    on its batch neighbours). Then `per_clip_band_stats` over the UNet masks
+    of two explains of the 16 manipulated clips, every statistic finite.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
+    from xai_audio_deepfakes_tpu_torch.data.synthetic import (
+        detector_corpus_anyband,
+        make_anyband_corpus,
+    )
+    from xai_audio_deepfakes_tpu_torch.metrics.localization import per_clip_band_stats
+    from xai_audio_deepfakes_tpu_torch.models.logreg import (
+        logreg_apply,
+        logreg_params_from_any,
+        logreg_params_save,
+    )
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.train.train_logreg import stratified_split, train_detector
+
+    cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True))
+    e, n, sc = cfg.embedder, cfg.audio.num_samples, cfg.stft
+    corpora = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            _cuda.reset_launches()
+        t0 = time.perf_counter()
+        real, man, bands = make_anyband_corpus(np.random.default_rng(21), CORPUS, n, sc,
+                                               device=device)
+        wavs, labels = detector_corpus_anyband(real, man, sc, bands,
+                                               rng=np.random.default_rng(22), n_random_masks=4,
+                                               device=device)
+        corpora[device] = (real, man, bands, wavs, labels, time.perf_counter() - t0)
+        if device == "cuda":
+            build_launches = dict(_cuda.LAUNCHES)
+    real, man, bands, wavs, labels, build_s = corpora["cuda"]
+    print(f"anyband corpus ({CORPUS} clips, sweep, 4 random masks): {wavs.shape[0]} clips, "
+          f"labels {np.bincount(labels).tolist()}, built in {build_s:.2f} s on the card "
+          f"({corpora['cpu'][5]:.2f} s on the CPU), launches {build_launches}")
+    for i, name in ((0, "real"), (2, "bands"), (4, "labels")):
+        if not np.array_equal(corpora["cuda"][i], corpora["cpu"][i]):
+            fail(f"anyband corpus: {name} differ between the card and the CPU")
+    check_close("anyband corpus manipulated clips, card vs CPU", torch.from_numpy(man),
+                torch.from_numpy(corpora["cpu"][1]), 2e-4)
+    check_close("anyband detector corpus, card vs CPU", torch.from_numpy(wavs),
+                torch.from_numpy(corpora["cpu"][3]), 2e-4)
+    del corpora
+
+    pipe = build_pipeline(torch, cfg)
+    pipe.features(wavs[:BATCH])  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    feats = []
+    for i in range(0, len(wavs), BATCH):
+        chunk = wavs[i:i + BATCH]
+        padded = np.zeros((BATCH, n), np.float32)
+        padded[:len(chunk)] = chunk
+        feats.append(pipe.features(padded).mean(dim=1)[:len(chunk)].cpu())
+    x = torch.cat(feats).numpy()
+    embed_s = time.perf_counter() - t0
+    batches = -(-len(wavs) // BATCH)
+    corpus_launches = {k: build_launches[k] + v for k, v in _cuda.LAUNCHES.items()}
+    print(f"anyband corpus embed at batch {BATCH} (kernel D config): {len(wavs)} clips in "
+          f"{batches} batches, {embed_s:.3f} s, {len(wavs) / embed_s:.1f} clips/s, launches "
+          f"{dict(_cuda.LAUNCHES)}")
+    if dict(_cuda.LAUNCHES) != launches_of(a=e.num_layers * batches, d=len(e.conv_dim) * batches):
+        fail(f"corpus embed: launch counts {dict(_cuda.LAUNCHES)}")
+    if not np.isfinite(x).all():
+        fail("corpus embed: non-finite features")
+
+    logs: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, metrics = train_detector(x, labels, log_fn=logs.append)
+    fit_s = time.perf_counter() - t0
+    print(f"train_detector on {x.shape}: accuracy {metrics['accuracy']!r}, EER "
+          f"{metrics['eer']!r}, L-BFGS {logs[0]['lbfgs']}, {fit_s:.3f} s")
+    if not (0.0 <= metrics["eer"] <= 1.0 and 0.0 <= metrics["accuracy"] <= 1.0):
+        fail(f"train_detector: metrics out of range {metrics}")
+    head_path = root / "logreg_vocoded_anyband.npz"
+    logreg_params_save(params, str(head_path))
+    pipe.logreg = logreg_params_from_any(str(head_path))
+    _, test_idx, _, _ = stratified_split(np.arange(len(labels)), labels)
+    held = test_idx[:BATCH]
+    _, p_pipe = pipe.classify(wavs[held])
+    _, p_fit = logreg_apply(params, torch.from_numpy(x[held]).cuda())
+    check_close("reloaded head in the pipeline: classify vs the fitted head on the corpus "
+                "features, 8 held-out clips", p_pipe, p_fit, 1e-6)
+
+    _cuda.reset_launches()
+    masks = torch.cat([pipe.explain(man[i:i + BATCH]).mask.cpu() for i in (0, BATCH)])
+    local_launches = dict(_cuda.LAUNCHES)
+    stats = per_clip_band_stats(masks.numpy(), sc, bands, freq_bins=cfg.unet.freq_bins,
+                                frames=cfg.unet.frames)
+    scalars = {k: v for k, v in stats.items() if k != "per_clip"}
+    print(f"per_clip_band_stats over the masks of 2 explains of the {CORPUS} manipulated "
+          f"clips: {json.dumps(scalars)}; launches {local_launches}")
+    values = list(scalars.values()) + [v for c in stats["per_clip"] for v in c.values()]
+    if any(v is None or not math.isfinite(v) for v in values):
+        fail("per_clip_band_stats: a statistic is missing or not finite")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"detector_corpus": corpus_launches, "detector_localization": local_launches}
+
+
+def run_solver_full_width(torch) -> None:
+    """`fit_logreg` on the card on seeded features [4096, 1920] with a noisy
+    linear label (signal scale 0.5 under logistic noise: not separable at
+    this n / d, so the optimum is finite) against scipy's L-BFGS-B in
+    float64 on the same objective: cosine of the weights above 0.999, the
+    objective (float64, at the card's weights) within 1e-4 relative of
+    scipy's optimum."""
+    import numpy as np
+    import scipy.optimize
+
+    from xai_audio_deepfakes_tpu_torch.train.train_logreg import fit_logreg
+
+    n, d, c = 4096, 1920, 1e6
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w0 = rng.standard_normal(d) / math.sqrt(d)
+    y = ((x @ w0) * 0.5 + rng.logistic(size=n) > 0).astype(np.int64)
+    logs: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = fit_logreg(x, y, c=c, log_fn=logs.append)
+    fit_s = time.perf_counter() - t0
+    xd, yd = x.astype(np.float64), y.astype(np.float64)
+
+    def objective(v):
+        z = xd @ v[:d] + v[d]
+        val = np.sum(np.maximum(z, 0) - z * yd + np.log1p(np.exp(-np.abs(z))))
+        val += 0.5 / c * v[:d] @ v[:d]
+        r = 0.5 * (1 + np.tanh(0.5 * z)) - yd  # sigmoid(z) - y without overflow
+        return val, np.concatenate([xd.T @ r + v[:d] / c, [r.sum()]])
+
+    t0 = time.perf_counter()
+    ref = scipy.optimize.minimize(objective, np.zeros(d + 1), jac=True, method="L-BFGS-B",
+                                  options={"maxiter": 15000})
+    scipy_s = time.perf_counter() - t0
+    mine = np.concatenate([params["weight"].cpu().numpy()[:, 0],
+                           params["bias"].cpu().numpy()]).astype(np.float64)
+    cos = float(mine[:d] @ ref.x[:d] / (np.linalg.norm(mine[:d]) * np.linalg.norm(ref.x[:d])))
+    rel = (objective(mine)[0] - ref.fun) / ref.fun
+    acc = float(np.mean((xd @ ref.x[:d] + ref.x[d] > 0) == y))
+    print(f"fit_logreg [{n}, {d}] on the card: {fit_s:.3f} s, {logs[0]['lbfgs']}; scipy L-BFGS-B "
+          f"float64: {ref.nit} iterations, {scipy_s:.2f} s, objective {float(ref.fun)!r} (training "
+          f"accuracy {acc:.4f}: not separable); cosine {cos!r} (bar > 0.999), objective "
+          f"{rel:.3e} relative (bar 1e-4)")
+    if not (cos > 0.999 and abs(rel) <= 1e-4):
+        fail("fit_logreg at full width disagrees with scipy")
+
+
+def run_tiny_detector(torch) -> None:
+    """Tiny card against CPU on the same weights: `band_spliced_waveforms`
+    (the STFT bar, 2e-4) and `generate_band_swap_features`' pooled features
+    through the tiny f32 encoder (its bar, 5e-4)."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.config import (
+        AudioConfig,
+        EmbedderConfig,
+        PipelineConfig,
+        UNetConfig,
+    )
+    from xai_audio_deepfakes_tpu_torch.data.bandswap import (
+        band_spliced_waveforms,
+        generate_band_swap_features,
+    )
+
+    cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5), embedder=EmbedderConfig.tiny(),
+                         unet=UNetConfig(freq_bins=64, frames=24, base_channels=4))
+    gpu, cpu = twin_pipelines(torch, cfg)
+    rng = np.random.default_rng(24)
+    pairs = [(rng.standard_normal(8000).astype(np.float32) * 0.1,
+              rng.standard_normal(8000).astype(np.float32) * 0.3) for _ in range(2)]
+    real, twin = (torch.from_numpy(a) for a in pairs[0])
+    with torch.inference_mode():
+        got = band_spliced_waveforms(real.cuda(), twin.cuda(), cfg.stft)[0].cpu()
+        want = band_spliced_waveforms(real, twin, cfg.stft)[0]
+    check_close("tiny band_spliced_waveforms, card vs CPU", got, want, 2e-4)
+    feats = [generate_band_swap_features(pairs, lambda w, p=p: p.features(w).mean(dim=1),
+                                         device=p.device)[0] for p in (gpu, cpu)]
+    check_close("tiny generate_band_swap_features, card vs CPU", torch.from_numpy(feats[0]),
+                torch.from_numpy(feats[1]), 5e-4)
+
+
 def main() -> int:
     import torch
 
@@ -1658,7 +2057,6 @@ def main() -> int:
     paths["hf_import_explain"] = run_hf_import(torch, cfg, BATCH, "safetensors", "full width")
     torch.cuda.empty_cache()
     run_hf_import(torch, tiny_aligned_config(), 2, "bin", "tiny width")
-    run_tiny_reference(torch)
     run_tiny_training(torch)
     run_tiny_features_and_attribution(torch)
 
@@ -1676,9 +2074,21 @@ def main() -> int:
                        ("explain_int8_static", static)):
         torch.cuda.empty_cache()
         paths[path] = run_explain(torch, pcfg, serving, reps=2, name=path, split=True)[0]
+    paths.update(run_int8_attribution(torch, bench))
     torch.cuda.empty_cache()
     frontend_bias_adds(torch, cfg)
     run_tiny_configs(torch)
+
+    # the detector and its data: datagen and embed (the CLI's default
+    # configuration), the anyband corpus and the detector fit, the solver
+    wav_root = Path(__file__).resolve().parent / "build" / "detector_wavs"
+    shutil.rmtree(wav_root, ignore_errors=True)
+    paths.update(run_datagen_and_embed(torch, wav_root))
+    paths.update(run_detector_corpus(torch, wav_root))
+    run_solver_full_width(torch)
+    run_tiny_detector(torch)
+    # after every full-width phase (ROADMAP Queue 3: a mask miss seen once there)
+    run_tiny_reference(torch)
 
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in paths.items()}

@@ -255,16 +255,118 @@ def test_harnesses_match_jax(tiny_pipes):
 
 
 def test_harness_refusals(tiny_pipes):
-    """The sharded sweep and attribution through the int8 embedder (no
-    gradient through `torch._int_mm`) raise, citing ROADMAP.md."""
+    """The sharded sweep raises, citing ROADMAP.md. (Attribution through the
+    int8 embedder runs: `test_int8_attributions_match_jax`.)"""
     pipe, wav = tiny_pipes[3], tiny_pipes[5]
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         run_explanation_metrics(pipe, [wav], mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# attribution through the int8 embedder
+# ---------------------------------------------------------------------------
+
+
+def _int8_pipes(tiny_pipes, quant: str, fused_attention: bool):
+    """tiny_pipes' weights under `quant` on both sides; int8-static with
+    JAX's scales, calibrated on 4 seeded clips and loaded through the bridge
+    (the `ctx` site's width follows the attention path: on the CPU the JAX
+    package runs its unfused attention)."""
+    jpipe0, params = tiny_pipes[0], tiny_pipes[1]
+    jpipe = JPipeline(jpipe0.cfg.replace(embedder=tc.dataclasses.replace(
+        jpipe0.cfg.embedder, quant=quant)))
+    if quant == "int8-static":
+        calib = np.random.default_rng(9).standard_normal((4, 8000)).astype(np.float32) * 0.1
+        params = jpipe.calibrate_quant(params, jnp.asarray(calib), batch_size=2)
+        params["quant_scales"] = jax.tree.map(np.asarray, params["quant_scales"])
     cfg = tiny()
-    int8 = ADDvisorPipeline(cfg.replace(embedder=tc.dataclasses.replace(cfg.embedder, quant="int8")),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        run_attribution_metrics(int8, [wav])
+    pipe = ADDvisorPipeline(cfg.replace(embedder=tc.dataclasses.replace(
+        cfg.embedder, quant=quant, fused_attention=fused_attention)), device="cpu", seed=4)
+    load_jax_params(pipe, params)
+    if quant == "int8-static":
+        assert pipe.quant_scales["ctx"].shape == (2, 32)
+
+    def j_score(w):
+        return jpipe.classify(params, w)[0]
+
+    def t_score(w):
+        return logreg_apply(pipe.logreg, pipe.embed(w).mean(dim=1))[0]
+
+    return jpipe, params, j_score, pipe, t_score
+
+
+@pytest.mark.parametrize("method", ["saliency", "input_x_gradient"])
+@pytest.mark.parametrize("quant", ["int8", "int8-static"])
+def test_int8_attributions_match_jax(tiny_pipes, quant, method):
+    """Saliency and input x gradient through the int8 embedder (dynamic
+    per-token scales, and static scales calibrated by JAX) against JAX's
+    methods at `_assert_maps_close`'s bar, and the attribution harness's
+    mask equal to JAX's `attribution_mask` of JAX's map. The gradient flows
+    as in JAX: none through the int8 products or `round`, the rest through
+    the residual stream, the float layers and, with dynamic scales, the
+    scales' `amax`. On the CPU the JAX package's encoder runs its einsum
+    attention whatever `fused_attention` says, so the port runs its
+    counterpart in the same order (`fused_attention=False`);
+    `test_int8_attribution_in_kernel_a_order` covers kernel A's order."""
+    jpipe, params, j_score, pipe, t_score = _int8_pipes(tiny_pipes, quant, False)
+    wav = tiny_pipes[5]
+    want = jax.jit(lambda w: jm.METHODS[method](j_score, w))(jnp.asarray(wav))
+    got = tm.METHODS[method](t_score, torch.from_numpy(wav))
+    assert float(got.abs().max()) > 0
+    _assert_maps_close(got, want, f"{quant} {method}")
+    seen = []
+    result = run_attribution_metrics(pipe, [wav], method=method,
+                                     artifact_fn=lambda *a: seen.append(a))
+    assert result["num_clips"] == 2 and np.isfinite(result["faithfulness"])
+    np.testing.assert_allclose(seen[0][1], np.asarray(jm.attribution_mask(want)), atol=1e-4)
+
+
+def test_int8_attribution_in_kernel_a_order(tiny_pipes, monkeypatch):
+    """Saliency through the int8 embedder in kernel A's order of operations
+    (`fused_attention=True`, its plain version on the CPU) against eager
+    JAX, both sides quantizing to JAX's int8 values: within 1e-4 of the
+    largest magnitude. Left to its own roundings the port lands 1.1e-4 from
+    JAX here (ROADMAP.md Queue 3): one of the 25536 elements quantized at
+    layer 0's `ffn_in` site lies within f32 rounding of a rounding boundary
+    and takes the other int8 value, and the dynamic scale's gradient, which
+    sums acc * sw * g over that token, moves with it."""
+    import xai_audio_deepfakes_tpu.ops.quant as jq
+    import xai_audio_deepfakes_tpu_torch.models.wav2vec2 as tw
+
+    jpipe, params, j_score, pipe, t_score = _int8_pipes(tiny_pipes, "int8", True)
+    wav = tiny_pipes[5]
+    recorded, j_quantize = [], jq.quantize_symmetric
+
+    def record(x, axis):
+        q, s = j_quantize(x, axis)
+        if x.ndim == 3:  # an activation site (weights are 2-D)
+            recorded.append(np.array(q))
+        return q, s
+
+    monkeypatch.setattr(jq, "quantize_symmetric", record)
+    with jax.disable_jit():
+        jpipe.features(params, jnp.asarray(wav))
+    monkeypatch.setattr(jq, "quantize_symmetric", j_quantize)
+    with jax.disable_jit():
+        want = jm.saliency(j_score, jnp.asarray(wav))
+    assert len(recorded) == 4 * len(pipe.encoder.layers)
+    e = pipe.cfg.embedder
+    nh, hd = e.num_heads, e.hidden_size // e.num_heads
+    sites, t_quantize = iter(recorded), tw.quantize_symmetric
+
+    def inject(x, dim):
+        q, s = t_quantize(x, dim)
+        jqv = torch.from_numpy(next(sites))
+        if jqv.shape != q.shape:  # the head-padded context
+            padded = torch.zeros_like(q).reshape(*q.shape[:2], nh, -1)
+            padded[..., :hd] = jqv.reshape(*q.shape[:2], nh, hd)
+            jqv = padded.reshape(q.shape)
+        return jqv, s
+
+    monkeypatch.setattr(tw, "quantize_symmetric", inject)
+    got = tm.saliency(t_score, torch.from_numpy(wav))
+    assert next(sites, None) is None
+    _assert_maps_close(got, want, "int8 saliency, kernel A order, JAX's int8 values")
 
 
 def test_attribution_sweep_takes_deterministic_cudnn(tiny_pipes, monkeypatch):

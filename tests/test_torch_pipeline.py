@@ -77,10 +77,14 @@ def test_explain_matches_jax_jit_explain(jax_params, masking):
 
 
 def test_port_runs_without_jax():
-    """Import the port and run the tiny explain on the CPU in a process where
-    `import jax` and `import xai_audio_deepfakes_tpu` fail."""
+    """Import every module of the port, run the tiny explain and the tiny
+    detector path (a wav written and read back, band splices and their
+    features, the L-BFGS fit) on the CPU in a process where `import jax` and
+    `import xai_audio_deepfakes_tpu` fail."""
     code = (
         "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # beside the suite's workers\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['xai_audio_deepfakes_tpu'] = None\n"
         "import numpy as np\n"
@@ -90,6 +94,26 @@ def test_port_runs_without_jax():
         "                     unet=UNetConfig(freq_bins=64, frames=24, base_channels=4))\n"
         "out = ADDvisorPipeline(cfg, device='cpu').explain(np.zeros((1, 8000), np.float32) + 0.01)\n"
         "assert out.relevant_wav.shape == (1, 8000)\n"
+        "import importlib, os, pkgutil, tempfile\n"
+        "import xai_audio_deepfakes_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'xai_audio_deepfakes_tpu_torch.train.train_logreg' in names, names\n"
+        "from xai_audio_deepfakes_tpu_torch.data import bandswap, datasets, io\n"
+        "from xai_audio_deepfakes_tpu_torch.train.train_logreg import evaluate_logreg, fit_logreg\n"
+        "pipe = ADDvisorPipeline(cfg, device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "rng = np.random.default_rng(0)\n"
+        "for i in range(2):\n"
+        "    io.write_wav(os.path.join(d, f'{i}.wav'), rng.uniform(-.3, .3, 8000), 16000)\n"
+        "batch = next(iter(datasets.AudioBatcher(['0.wav', '1.wav'], 2, root=d,\n"
+        "                                        clip_seconds=0.5, num_workers=2)))\n"
+        "pairs = [(w, w[::-1].copy()) for w in batch]\n"
+        "x, y = bandswap.generate_band_swap_features(\n"
+        "    pairs, lambda w: pipe.features(w).mean(dim=1), device='cpu')\n"
+        "metrics = evaluate_logreg(fit_logreg(x, y, max_iter=5, device='cpu'), x, y)\n"
+        "assert x.shape == (18, 32) and 0 <= metrics['eer'] <= 1\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"

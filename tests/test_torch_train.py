@@ -408,6 +408,36 @@ def test_overfit_loss_decreases(wav):
     assert losses[-1] < losses[1] < losses[0], losses
 
 
+def test_train_step_takes_deterministic_cudnn(wav, monkeypatch):
+    """The step's forward and backward run with cuDNN's deterministic
+    algorithms (on the card two identical steps then agree bit for bit,
+    which chip_smoke.py checks), and the caller's setting is back after
+    it, also when the step raises; two identical steps from the same seed
+    agree bit for bit here too."""
+    runs = []
+    for _ in range(2):
+        pipe = ADDvisorPipeline(tiny(), device="cpu", seed=1)
+        seen, embed = [], pipe.embed
+
+        def spy(w, *args, embed=embed, seen=seen, **kw):
+            seen.append(torch.backends.cudnn.deterministic)
+            return embed(w, *args, **kw)
+
+        monkeypatch.setattr(pipe, "embed", spy)
+        state, step = init_train_state(pipe), make_train_step(pipe)
+        before = torch.backends.cudnn.deterministic
+        _, aux = step(state, wav)
+        assert torch.backends.cudnn.deterministic == before
+        assert seen and set(seen) == {True}, seen
+        runs.append((aux["loss_vec"], [p.grad.clone() for p in pipe.unet.parameters()]))
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=0, atol=0)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="Padding size"):
+        step(state, wav[:, :100])  # shorter than the STFT's reflect pad
+    assert torch.backends.cudnn.deterministic == before
+
+
 def test_train_loop_logs_ramps_l1_and_checkpoints(wav, tmp_path):
     pipe = ADDvisorPipeline(tiny(checkpoint_every=2), device="cpu", seed=1)
     records, saved = [], []

@@ -5,19 +5,23 @@ The JAX package beside it is the reference; this package imports nothing of
 it, and nothing of JAX. Its layout mirrors the JAX package's:
 
 config    the configuration dataclasses (own copies)
-ops       DSP, masking and the kernel wrappers (attention, STFT/iSTFT,
-          LayerNorm+GELU, conv+LayerNorm+GELU), each with its plain PyTorch
-          version and a gradient
+ops       DSP, masking, resampling, waveform alignment and the kernel
+          wrappers (attention, STFT/iSTFT, LayerNorm+GELU,
+          conv+LayerNorm+GELU), each with its plain PyTorch version and a
+          gradient
 csrc      the hand-written CUDA kernels, built with nvcc at first use
 models    UNet and feature mask decoders, wav2vec2 XLS-R embedder (with the
           HF checkpoint import), LogReg head
 pipeline  `ADDvisorPipeline.explain(decoder="unet" | "features")`, end to end
 losses    the LMAC loss
-train     LMAC training of either mask decoder (`train_addvisor`), checkpoints
-metrics   the LMAC faithfulness metrics, EER, the eval and attribution harnesses
+train     LMAC training of either mask decoder (`train_addvisor`), checkpoints,
+          the detector head's L-BFGS fit (`train_logreg`)
+metrics   the LMAC faithfulness metrics, EER, the eval and attribution
+          harnesses, mask localisation against a known band
 attrib    gradient attribution over the waveform (saliency, input x gradient,
           integrated gradients, SmoothGrad, GradientShap)
-data      the background batch prefetcher
+data      audio I/O (native, scipy, wave), dataset scanners and the batcher,
+          the prefetcher, band-splice datagen and the synthetic corpora
 convert   the weight bridge from and to the JAX package's parameter tree
 
 Entry points run on CUDA unless the caller passes device="cpu".
@@ -43,6 +47,7 @@ _LAZY = {
     "train_addvisor": ("xai_audio_deepfakes_tpu_torch.train.train_addvisor", "train_addvisor"),
     "make_train_step": ("xai_audio_deepfakes_tpu_torch.train.train_addvisor", "make_train_step"),
     "init_train_state": ("xai_audio_deepfakes_tpu_torch.train.train_addvisor", "init_train_state"),
+    "train_detector": ("xai_audio_deepfakes_tpu_torch.train.train_logreg", "train_detector"),
 }
 
 

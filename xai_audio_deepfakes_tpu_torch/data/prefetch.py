@@ -1,6 +1,6 @@
 """Input-pipeline overlap (port of `data/prefetch.py`): a background thread
 that runs ahead of the training loop and stages the next batches onto the
-device.
+device, and an order-preserving threaded map for host-side decode.
 
     for dev_batch in prefetch_to_device(batches, device, size=2):
         step(state, dev_batch)
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterable, Iterator
 
 import torch
@@ -63,3 +64,12 @@ def prefetch_to_device(iterable: Iterable, device: torch.device, size: int = 2) 
     """`prefetch` with each batch staged by `to_device` from the background
     thread."""
     return prefetch((to_device(item, device) for item in iterable), size=size)
+
+
+def parallel_map(fn, items, num_workers: int = 8) -> list:
+    """Order-preserving threaded map for host-side decode (the native
+    decoder and scipy's release the GIL while they read)."""
+    if num_workers <= 1 or len(items) <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        return list(pool.map(fn, items))

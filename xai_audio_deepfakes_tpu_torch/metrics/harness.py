@@ -12,21 +12,28 @@ Each batch reduces to a few sums on the device; the sums come to the host
 once, after the last batch, and fold there in float64, so eval memory is
 O(1) in clips and the host does not wait for the device between batches.
 
-The attribution gradients take cuDNN's deterministic algorithms: with its
-default ones the backward convolutions of the embedder may sum in any
-order, so two runs on the same weights and clips gave different maps, and
-masks near a threshold then flipped the sweep's decisions.
+The attribution gradients take cuDNN's deterministic algorithms
+(`device.deterministic_cudnn`): with its default ones the backward
+convolutions of the embedder may sum in any order, so two runs on the same
+weights and clips gave different maps, and masks near a threshold then
+flipped the sweep's decisions.
+
+Attribution runs through every embedder configuration, int8 included: the
+int8 products take integer operands and have no gradient of their own, and
+`torch.round` has a zero gradient, so, as in the JAX package, the gradient
+flows through the residual stream, the float layers and the dynamic
+scales' `amax`.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Iterable
 
 import torch
 
 from xai_audio_deepfakes_tpu_torch.attrib.methods import waveform_explanation
 from xai_audio_deepfakes_tpu_torch.config import MaskingConvention, manipulated_probability
+from xai_audio_deepfakes_tpu_torch.device import deterministic_cudnn
 from xai_audio_deepfakes_tpu_torch.metrics.lmac_metrics import (
     compute_faithfulness,
     compute_fidelity,
@@ -62,25 +69,6 @@ def run_explanation_metrics(
     return result
 
 
-def _check_differentiable(pipe: ADDvisorPipeline) -> None:
-    e = pipe.cfg.embedder
-    if e.quant != "none" or e.quant_conv != "none":
-        raise NotImplementedError(
-            "attribution through the int8 embedder is not ported yet: torch._int_mm has "
-            "no gradient (ROADMAP.md Queue 1 item 5)")
-
-
-@contextlib.contextmanager
-def _deterministic_cudnn():
-    """cuDNN's deterministic algorithms for the block, the flag restored after."""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
-
-
 def run_attribution_metrics(
     pipe: ADDvisorPipeline,
     batches: Iterable,
@@ -93,11 +81,10 @@ def run_attribution_metrics(
     through the pipeline's grad-carrying `embed` and the LogReg head;
     `method_kw` goes to `waveform_explanation` (a `generator` for the random
     methods among it). The gradients are reproducible on the card
-    (`_deterministic_cudnn`). With `artifact_fn`, each batch's waveform mask and
+    (`deterministic_cudnn`). With `artifact_fn`, each batch's waveform mask and
     relevant / irrelevant waveforms also come to the host, as
     artifact_fn(wav, mask, rel_wav, irr_wav, p_clean, p_rel, p_irr) of
     numpy arrays."""
-    _check_differentiable(pipe)
 
     def score_fn(w: torch.Tensor) -> torch.Tensor:
         return logreg_apply(pipe.logreg, pipe.embed(w).mean(dim=1))[0]
@@ -105,7 +92,7 @@ def run_attribution_metrics(
     sums, n_clips = [], 0
     for wav in batches:
         wav = pipe._as_input(wav)
-        with _deterministic_cudnn():
+        with deterministic_cudnn():
             mask, rel, irr = waveform_explanation(score_fn, wav, method=method, **method_kw)
         with torch.inference_mode():
             _, p_clean = pipe.classify(wav)

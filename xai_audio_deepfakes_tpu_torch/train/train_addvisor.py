@@ -28,6 +28,7 @@ import torch
 
 from xai_audio_deepfakes_tpu_torch.config import PipelineConfig
 from xai_audio_deepfakes_tpu_torch.data.prefetch import prefetch, to_device
+from xai_audio_deepfakes_tpu_torch.device import deterministic_cudnn
 from xai_audio_deepfakes_tpu_torch.losses.lmac import (
     init_w_raw,
     lmac_loss,
@@ -115,6 +116,10 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     stay on the decoder's parameters and on `state.w_raw` until the next one.
     A profiler passes `mark`: it is called with "collate", "forward",
     "backward" and "optimiser" as each of those phases has been enqueued.
+
+    The step runs under cuDNN's deterministic algorithms
+    (`device.deterministic_cudnn`), so two identical steps on the card give
+    the same losses and gradients bit for bit, as the JAX step does.
     """
     _check_trainable(pipe.cfg, decoder)
     cfg = pipe.cfg
@@ -131,6 +136,10 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
         return logreg_apply(pipe.logreg, feats.mean(dim=1))[0]
 
     def step(state: AddvisorTrainState, wav, l1_scale=None):
+        with deterministic_cudnn():
+            return _step(state, wav, l1_scale)
+
+    def _step(state: AddvisorTrainState, wav, l1_scale):
         wav = to_device(wav, pipe.device)
         with torch.no_grad():  # the collate stage: STFT and the clean target
             _, _, mag, phase = pipe.stft_stage(wav)
