@@ -15,8 +15,11 @@ PyTorch built for CUDA. It
  3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
     E conv+LayerNorm+GELU) against its plain PyTorch version at every batch
     the driven paths give it (`EMBED_BATCHES`: embedder batches 1, 2, 4, 8,
-    16 and 24 for A, D and E; `SPEC_BATCHES`: 1, 2, 8 and 16 clips for B
-    and C), in f32 and in the working dtype, each beside its tolerance, and
+    16 and 24 for A, D and E, and 48 for A, the closed loop's explain;
+    `SPEC_BATCHES`: 1, 2, 8, 16 and 32 clips for B and C, and 1 and 8 in
+    the Hann 1024 / hop 256 configuration of the mel frontend and the
+    vocoded splices, B also timed at the mel shape [8, 80000] against its
+    bytes bound), in f32 and in the working dtype, each beside its tolerance, and
     times, at the UNet explain's shapes (8 clips, embedder batch 24), the
     kernel, the plain version and one PyTorch library call that computes
     the same function (timed only; the port never calls it) by CUDA events;
@@ -105,10 +108,31 @@ PyTorch built for CUDA. It
     scipy's float64 L-BFGS-B (cosine > 0.999, objective 1e-4 relative); and
     tiny `band_spliced_waveforms` (2e-4) and band-swap features (5e-4) on
     the card against the CPU;
-13. last of the phases, a tiny f32 explain on the card 20 times against
+13. takes one training step at 2 clips with each switch ported last (the
+    bf16 UNet; `target_quant="int8"`) in the kernel D + E configuration
+    (A 27, B 1, C 2, D 3, E 18; step ms and peak memory beside the f32
+    step's), and a tiny step of each on the card against the CPU (the
+    int8 target at the training bars, the bf16 UNet at multiples of its
+    own bf16-vs-f32 deviation);
+14. drives the vocoder at full width over 8 clips (default `HiFiGANConfig`,
+    f32, 512 initial channels): `vocode` (B 1, [8, 80128]), its mel /
+    HiFi-GAN split and peak memory, `explain_vocoded` (A 9, B 2, C 2) with
+    the explain and the HiFi-GAN timed apart, `generate_vocoded_dataset`
+    over datagen's 8 wavs (64 band-spliced wavs, a file B 3, C 1, leakage
+    warnings counted), and a tiny `explain_vocoded` on the card against
+    the CPU;
+15. runs the closed loop reduced (`run_closed_loop(anyband=True)`, 32
+    training and 16 evaluation clips, 3 epochs at batch 16) in the
+    configuration of `docs/closed_loop_anyband`'s command line (bf16,
+    `scan_layers`, remat "dots", lr 3e-4, noise rms 1.0): the detector's
+    accuracy and EER, epoch records with `sec`, localisation, keep and
+    flip rates before and after, launches per stage; every epoch
+    checkpointed asynchronously (each checkpoint its epoch's state, the
+    last reloaded bit for bit) and `artifact_fn` once per epoch;
+16. last of the phases, a tiny f32 explain on the card 20 times against
     one on the CPU with the same weights (mask 1e-5, waveforms 2e-4,
     probabilities 1e-4), the largest deviations printed;
-14. prints the `kernels` JSON line and, last, the device line. A kernel's
+17. prints the `kernels` JSON line and, last, the device line. A kernel's
     `launches` are those of every driven path together, each path counted
     from zero and named in `launches_by_path`; its `body` names the design
     that ran.
@@ -130,14 +154,24 @@ from pathlib import Path
 
 BATCH = 8  # clips per explain; the embedder runs 3 * BATCH
 CORPUS = 16  # clips of the anyband detector corpus
+LOOP_BATCH = 16  # the closed loop's batch (the anyband protocol's)
+LOOP_TRAIN = 32  # training clips of the reduced closed loop (its corpora's batch)
 # the batches the driven paths give the kernels, each held at all of them:
 # the embedder (A, D, E) runs at 1 (datagen's real clip), 2 (training steps,
 # attribution), 4 (the embed loop), BATCH (datagen's 8 band splices, the
 # corpus embed, the feature decoder's clean embed), 2 * BATCH (its masked
-# clips) and 3 * BATCH (the UNet explain); the STFT and iSTFT (B, C) at 1
-# (datagen's clip and twin), 2, BATCH (the splices' iSTFT) and CORPUS
+# clips; the closed loop's embeds and its loss's relevant and irrelevant
+# clips, LOOP_BATCH each) and 3 * BATCH (the UNet explain); A also at
+# 3 * LOOP_BATCH (the closed loop's explains); the STFT and iSTFT (B, C) at
+# 1 (datagen's clip and twin), 2, BATCH (the splices' iSTFT), CORPUS (and
+# LOOP_BATCH) and LOOP_TRAIN (the closed loop's corpora), and in the Hann
+# 1024 / hop 256 configuration of the mel frontend and the vocoded splices
+# at 1 (a file's mel, its splice's STFTs) and BATCH (the mel at [8, 80000],
+# the eight band splices' iSTFT)
 EMBED_BATCHES = (1, 2, 4, BATCH, 2 * BATCH, 3 * BATCH)
-SPEC_BATCHES = (1, 2, BATCH, CORPUS)
+ATTENTION_BATCHES = EMBED_BATCHES + (3 * LOOP_BATCH,)
+SPEC_BATCHES = (1, 2, BATCH, CORPUS, LOOP_TRAIN)
+HANN_SPEC_BATCHES = (1, BATCH)
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over the
 # peak rate of its input type
@@ -267,7 +301,7 @@ def check_attention(torch, cfg, rows: list) -> None:
     t, nh, hd, hdp = cfg.audio.num_frames(cfg.stft), e.num_heads, 120, 128
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for b in EMBED_BATCHES:
+    for b in ATTENTION_BATCHES:
         qkv = attention_inputs(torch, g, b, t, nh, hd, hdp, q_scale=hd**-0.5)
         for dt, atol, rtol in ((torch.float32, 1e-5, 0.0), (torch.bfloat16, 1e-2, 1e-2)):
             q, k, v = (x.to(dt) for x in qkv)
@@ -279,9 +313,11 @@ def check_attention(torch, cfg, rows: list) -> None:
             if bool(pad.any()):
                 fail(f"A attention: pad lanes are not exactly zero at batch {b}")
             del out
-    # timed at the UNet explain's batch (the loop's last)
-    b = EMBED_BATCHES[-1]
-    q, k, v = (x.to(torch.bfloat16) for x in qkv)
+        if b == 3 * BATCH:
+            timed = qkv
+    # timed at the UNet explain's batch
+    b = 3 * BATCH
+    q, k, v = (x.to(torch.bfloat16) for x in timed)
     heads = lambda x: x.reshape(b, t, nh, hdp).transpose(1, 2)  # noqa: E731
     qh, kh, vh = heads(q).contiguous(), heads(k).contiguous(), heads(v).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -306,6 +342,7 @@ def check_attention(torch, cfg, rows: list) -> None:
 
 
 def check_stft(torch, cfg, rows: list) -> None:
+    from xai_audio_deepfakes_tpu_torch.data.vocoded import hann_splice_config
     from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft, stft
     from xai_audio_deepfakes_tpu_torch.ops.stft import (
         device_constant,
@@ -314,32 +351,39 @@ def check_stft(torch, cfg, rows: list) -> None:
     )
 
     sc, n = cfg.stft, cfg.audio.num_samples
+    hann = hann_splice_config()  # the mel frontend's STFT too (hann 1024 / hop 256)
     g = torch.Generator(device="cuda").manual_seed(2)
     err = err_c = 0.0
     timed = {}  # BATCH's inputs
-    for b in SPEC_BATCHES:
-        x = torch.randn(b, n, device="cuda", generator=g) * 0.3
-        re, im = stft(x, sc)
-        torch.cuda.synchronize()
-        re_p, im_p = stft_plain(x, sc)
-        err = max(err, check_close(f"B stft re batch {b}", re, re_p, 2e-4),
-                  check_close(f"B stft im batch {b}", im, im_p, 2e-4))
-        mask = torch.rand(re.shape, device="cuda", generator=g)
-        re_m, im_m = (re_p * mask).contiguous(), (im_p * mask).contiguous()
-        y = istft(re_m, im_m, sc, n)
-        torch.cuda.synchronize()
-        err_c = max(err_c, check_close(f"C istft batch {b}", y, istft_plain(re_m, im_m, sc, n),
-                                       2e-4))
-        # randn spectra, as a gradient's: Im[0] and Im[M] non-zero, which the
-        # plain version's bases ignore
-        re_r, im_r = (torch.randn(re.shape, device="cuda", generator=g) for _ in range(2))
-        err_c = max(err_c, check_close(f"C istft, randn spectra, batch {b}",
-                                       istft(re_r, im_r, sc, n),
-                                       istft_plain(re_r, im_r, sc, n), 2e-4))
-        if b == BATCH:
-            timed = dict(x=x, re_m=re_m, im_m=im_m)
-    x, re_m, im_m = timed["x"], timed["re_m"], timed["im_m"]
-    t = re.shape[-1]
+    for conf, batches in ((sc, SPEC_BATCHES), (hann, HANN_SPEC_BATCHES)):
+        tag = "" if conf is sc else " hann 1024/256"
+        for b in batches:
+            x = torch.randn(b, n, device="cuda", generator=g) * 0.3
+            re, im = stft(x, conf)
+            torch.cuda.synchronize()
+            re_p, im_p = stft_plain(x, conf)
+            err = max(err, check_close(f"B stft{tag} re batch {b}", re, re_p, 2e-4),
+                      check_close(f"B stft{tag} im batch {b}", im, im_p, 2e-4))
+            mask = torch.rand(re.shape, device="cuda", generator=g)
+            re_m, im_m = (re_p * mask).contiguous(), (im_p * mask).contiguous()
+            y = istft(re_m, im_m, conf, n)
+            torch.cuda.synchronize()
+            err_c = max(err_c, check_close(f"C istft{tag} batch {b}", y,
+                                           istft_plain(re_m, im_m, conf, n), 2e-4))
+            # randn spectra, as a gradient's: Im[0] and Im[M] non-zero, which
+            # the plain version's bases ignore
+            re_r, im_r = (torch.randn(re.shape, device="cuda", generator=g) for _ in range(2))
+            err_c = max(err_c, check_close(f"C istft{tag}, randn spectra, batch {b}",
+                                           istft(re_r, im_r, conf, n),
+                                           istft_plain(re_r, im_r, conf, n), 2e-4))
+            if b == BATCH:
+                timed[conf] = x
+    mel = check_stft_mel(torch, hann, timed[hann])
+    x = timed[sc]
+    re_p, im_p = stft_plain(x, sc)
+    mask = torch.rand(re_p.shape, device="cuda", generator=g)
+    re_m, im_m = (re_p * mask).contiguous(), (im_p * mask).contiguous()
+    t = re_p.shape[-1]
     win = device_constant("window", x.device, sc.window, sc.win_length, sc.n_fft)
     def stft_lib():
         return torch.stft(x, sc.n_fft, sc.hop_length, sc.n_fft, win, center=True,
@@ -356,7 +400,7 @@ def check_stft(torch, cfg, rows: list) -> None:
                      plain_ms=time_ms(lambda: stft_plain(x, sc)), bound_ms=bnd, bound_by=by,
                      library_ms=lib, shape=[BATCH, n], dtype="float32",
                      kernel_device_ms=kernel_device_ms(lambda: stft(x, sc), "stft_fft_kernel"),
-                     library_device_ms=kernel_device_ms(stft_lib),
+                     library_device_ms=kernel_device_ms(stft_lib), mel_shape=mel,
                      body="radix-8 Stockham FFT of the even/odd-packed frame in shared memory, "
                      "split step, reflect pad folded into the read"))
 
@@ -380,6 +424,29 @@ def check_stft(torch, cfg, rows: list) -> None:
                      body="inverse real FFT (half-length pack, radix-8 Stockham core shared "
                      "with B) of the frames touching each 8-hop span, windowed overlap-add "
                      "gathered in shared memory, envelope, trim, crop"))
+
+
+def check_stft_mel(torch, hann, x) -> dict:
+    """Kernel B at the mel frontend's shape ([BATCH, 80000], hann 1024 /
+    hop 256: 513 x 313): its max error against the plain version (held in
+    `check_stft`'s loop), ms by CUDA events, device ms, the plain version's
+    ms and the bytes bound (the signal read once, re and im written once)."""
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import stft
+    from xai_audio_deepfakes_tpu_torch.ops.stft import stft_plain
+
+    re, im = stft(x, hann)
+    re_p, im_p = stft_plain(x, hann)
+    err = max(float((re - re_p).abs().max()), float((im - im_p).abs().max()))
+    b, n = x.shape
+    t = re.shape[-1]
+    nbytes = 4 * (b * n + 2 * b * hann.num_bins * t)
+    bnd, by = bound_ms(nbytes, b * t * fft_frame_ops(hann.n_fft), "float32")
+    row = dict(shape=[b, n], bins_frames=[hann.num_bins, t], window="hann", hop=hann.hop_length,
+               max_abs_err=err, ms=time_ms(lambda: stft(x, hann)),
+               device_ms=kernel_device_ms(lambda: stft(x, hann), "stft_fft_kernel"),
+               plain_ms=time_ms(lambda: stft_plain(x, hann)), bound_ms=bnd, bound_by=by)
+    print("B stft at the mel shape: " + json.dumps(row))
+    return row
 
 
 def frontend_lengths(cfg) -> list[int]:
@@ -931,9 +998,10 @@ def run_tiny_reference(torch, repeats: int = TINY_REPEATS) -> None:
           + f"; masks bit for bit the first run's: {same} of {repeats}")
 
 
-def run_training(torch, cfg) -> dict:
+def run_training(torch, cfg) -> tuple[dict, float]:
     """LMAC training steps of the UNet decoder at full width and depth on
-    seeded noise; returns the launches of the counted steps together."""
+    seeded noise; returns the launches of the counted steps together and
+    the steady step ms."""
     import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.ops import _cuda
@@ -998,7 +1066,7 @@ def run_training(torch, cfg) -> dict:
           f"{sum(times[3:]) / 3:.1f} ms (first {times[0]:.1f} ms), last step's device split "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
           + f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return total
+    return total, sum(times[3:]) / 3
 
 
 def rel_l2(a, b) -> float:
@@ -1984,6 +2052,443 @@ def run_tiny_detector(torch) -> None:
                 torch.from_numpy(feats[1]), 5e-4)
 
 
+def _flat_state(sd, prefix: str = "") -> dict:
+    out = {}
+    for k, v in sd.items():
+        if isinstance(v, dict):
+            out.update(_flat_state(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def run_closed_loop_reduced(torch, root: Path) -> dict:
+    """`run_closed_loop(anyband=True)` at full width in the anyband
+    protocol's configuration (`closed_loop.anyband_protocol_config`):
+    32 training and 16 evaluation clips, 3 epochs at batch 16 (2 steps an
+    epoch), noise rms 1.0, every epoch checkpointed asynchronously and an
+    `artifact_fn` recording each epoch's first mask. Prints the detector's
+    accuracy and EER, the epoch records with their `sec`, localisation,
+    keep and flip rates and faithfulness before and after training, and the
+    launches and seconds of each stage (the stages' functions wrapped in the
+    module; the embeds of the detector corpus and of the held-out check are
+    the rest). Checks: the launches of every stage; `artifact_fn` called
+    once per epoch with a finite [512, 248] mask; each epoch's checkpoint
+    holds that epoch's step count and loss weights (the record's `w`), and
+    the last reloads bit for bit into a fresh state; finite statistics.
+    Returns {stage: launches}."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.losses.lmac import init_w_raw, softplus_weights
+    from xai_audio_deepfakes_tpu_torch.models.unet import UNetMaskDecoder
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.train import artifacts, checkpoints, closed_loop
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import (
+        AddvisorTrainState,
+        make_optimizers,
+    )
+
+    cfg = closed_loop.anyband_protocol_config()
+    e, epochs, n_eval = cfg.embedder, 3, LOOP_BATCH
+    steps = epochs * (LOOP_TRAIN // LOOP_BATCH)
+    stages: dict = {}
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            before, t0 = dict(_cuda.LAUNCHES), time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = stages.setdefault(name, {"calls": 0, "s": 0.0, "launches": launches_of()})
+            rec["calls"] += 1
+            rec["s"] += time.perf_counter() - t0
+            for k in rec["launches"]:
+                rec["launches"][k] += _cuda.LAUNCHES[k] - before[k]
+            return out
+        return wrapped
+
+    arts, saved, records = [], [], []
+
+    def artifact_fn(epoch, mask, aux):
+        arts.append((epoch, tuple(mask.shape), bool(torch.isfinite(mask).all()),
+                     float(mask.mean())))
+
+    ckdir = root / "closed_loop_ckpts"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    names = ("make_anyband_corpus", "detector_corpus_anyband", "train_detector",
+             "evaluate_explanations", "train_addvisor")
+    originals = {name: getattr(closed_loop, name) for name in names}
+    for name in names:
+        setattr(closed_loop, name, counted(name, originals[name]))
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = closed_loop.run_closed_loop(
+            cfg, seed=0, n_train=LOOP_TRAIN, n_eval=n_eval, epochs=epochs,
+            batch_size=LOOP_BATCH, noise_rms=1.0, anyband=True, log_fn=records.append,
+            artifact_fn=artifact_fn,
+            checkpoint_fn=lambda ep, snap, loss: saved.append(checkpoints.save_checkpoint(
+                str(ckdir), ep, loss, snap, async_save=True)))
+    finally:
+        for name in names:
+            setattr(closed_loop, name, originals[name])
+    wall = time.perf_counter() - t0
+    checkpoints.wait_for_saves()
+    total = dict(_cuda.LAUNCHES)
+    stage_sum = {k: sum(r["launches"][k] for r in stages.values()) for k in total}
+    embeds = {k: total[k] - stage_sum[k] for k in total}
+    for name in names:
+        print(f"  closed loop stage {name}: {stages[name]['calls']} calls, "
+              f"{stages[name]['s']:.3f} s, launches {stages[name]['launches']}")
+    print(f"  closed loop stage embeds (detector corpus, held-out check): launches {embeds}")
+
+    a, n = e.num_layers, 2 * n_eval
+    want = {
+        "make_anyband_corpus": launches_of(b=4, c=2),
+        "detector_corpus_anyband": launches_of(b=28, c=20),
+        "train_detector": launches_of(),
+        "evaluate_explanations": launches_of(a=3 * a, b=3, c=6),
+        "train_addvisor": launches_of(a=steps * (3 * a + 2 * a), b=steps, c=2 * steps),
+    }
+    for name, w in want.items():
+        if stages[name]["launches"] != w:
+            fail(f"closed loop stage {name}: launches {stages[name]['launches']} != {w}")
+    if embeds["attention"] % a or any(v for k, v in embeds.items() if k != "attention"):
+        fail(f"closed loop embeds: launches {embeds}")
+    det_batches = embeds["attention"] // a - n // LOOP_BATCH
+
+    det, hold = res["detector"], res["detector_holdout"]
+    print(f"closed loop (reduced: {LOOP_TRAIN} train / {n_eval} eval clips, {epochs} epochs at "
+          f"batch {LOOP_BATCH}, {steps} steps; bf16, scan_layers, remat dots, lr 3e-4, noise "
+          f"rms 1.0): wall {wall:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; detector corpus embedded in "
+          f"{det_batches} batches of {LOOP_BATCH}; detector accuracy {det['accuracy']!r}, EER "
+          f"{det['eer']!r}; held out accuracy {hold['accuracy']!r}, EER {hold['eer']!r}")
+    log = [r for r in records if "epoch" in r]
+    for r in log:
+        print(f"  epoch {r['epoch']}: loss {r['loss']:.5f} l_in {r['l_in']:.5f} "
+              f"l_out {r['l_out']:.5f} l1 {r['l1']:.5f} w {[round(v, 5) for v in r['w']]} "
+              f"sec {r['sec']:.3f}")
+    for phase in ("before", "after", "after_train"):
+        ph = res[phase]
+        loc = {k: round(v, 4) for k, v in ph["localization"].items() if k != "per_clip"}
+        print(f"  {phase}: {json.dumps(loc)}, keep {ph['keep_rate']}, flip {ph['flip_rate']}, "
+              f"faithfulness {ph['metrics']['faithfulness']:.4f}, p_manipulated clean / relevant "
+              f"/ irrelevant {ph['p_manipulated_clean']:.4f} / {ph['p_manipulated_relevant']:.4f}"
+              f" / {ph['p_manipulated_irrelevant']:.4f}")
+        values = list(ph["metrics"].values()) + list(loc.values())
+        if not all(math.isfinite(v) for v in values):
+            fail(f"closed loop {phase}: a statistic is not finite")
+    if [r["epoch"] for r in log] != list(range(1, epochs + 1)):
+        fail(f"closed loop: epoch records {[r['epoch'] for r in log]}")
+    if not all(math.isfinite(r["loss"]) for r in log):
+        fail("closed loop: a non-finite epoch loss")
+
+    print(f"  artifact_fn calls (epoch, mask shape, finite, mean): {arts}")
+    if [x[0] for x in arts] != list(range(epochs)) or not all(
+            x[1] == (cfg.unet.freq_bins, cfg.unet.frames) and x[2] for x in arts):
+        fail("closed loop: artifact_fn was not called once per epoch with a finite first mask")
+    try:
+        artifacts.save_mask_png(res["final_masks"][0], str(root / "closed_loop_mask_0.png"))
+        print("  artifacts: matplotlib present, a mask PNG written")
+    except ImportError as err:
+        print(f"  artifacts: matplotlib absent on this machine, the PNG writers raise "
+              f"ImportError ({err})")
+
+    if [checkpoints.parse_checkpoint_name(p)[0] for p in saved] != list(range(1, epochs + 1)):
+        fail(f"closed loop: checkpoints {saved}")
+    for path, rec in zip(saved, log):
+        sd = checkpoints.load_checkpoint(path, "cuda")
+        got = softplus_weights(sd["w_raw"]).tolist()  # on the card, as the record's
+        if sd["step"] != rec["epoch"] * (LOOP_TRAIN // LOOP_BATCH) or got != rec["w"]:
+            fail(f"closed loop: checkpoint {path} holds step {sd['step']}, w {got}, not its "
+                 f"epoch's ({rec['w']})")
+    unet = UNetMaskDecoder(cfg.unet).cuda()
+    w_raw = init_w_raw(cfg.loss, torch.device("cuda"))
+    fresh = AddvisorTrainState(unet, w_raw, *make_optimizers(cfg, unet.parameters(), w_raw))
+    checkpoints.restore_checkpoint(saved[-1], fresh)
+    a_sd, b_sd = _flat_state(fresh.state_dict()), _flat_state(res["state"].state_dict())
+    same = a_sd.keys() == b_sd.keys() and all(
+        torch.equal(a_sd[k].cpu(), b_sd[k].cpu()) if isinstance(a_sd[k], torch.Tensor)
+        else a_sd[k] == b_sd[k] for k in a_sd)
+    print(f"  async checkpoints: {len(saved)} written ({[Path(p).name for p in saved]}); each "
+          f"holds its epoch's step and loss weights; the last reloaded into a fresh state "
+          f"{'bit for bit' if same else 'DIFFERENT'}")
+    if not same:
+        fail("closed loop: the last checkpoint does not reload bit for bit")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    del res
+    torch.cuda.empty_cache()
+    out = {f"closed_loop_{name}": rec["launches"] for name, rec in stages.items()}
+    out["closed_loop_embeds"] = embeds
+    return out
+
+
+def run_trainer_switches(torch, fused, f32_step_ms: float) -> dict:
+    """One counted and timed training step at 2 clips (after a warm-up
+    step) with each switch this slice ported, in the kernel D + E
+    configuration: the bf16 UNet and `target_quant="int8"`. Launches A 27,
+    B 1, C 2, D 3, E 18 (the int8 target embed runs the same kernels, its
+    projections int8 products), finite losses, loss weights summing to 3,
+    the decoder changed and its parameters f32; step ms and peak memory
+    beside the f32 step's (`run_training`, same call). Returns {path:
+    launches}."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.config import TrainConfig, UNetConfig
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    e = fused.embedder
+    paths = {}
+    cases = {"bf16_unet": fused.replace(unet=UNetConfig(dtype="bfloat16")),
+             "target_quant_int8": fused.replace(train=TrainConfig(target_quant="int8"))}
+    rng = np.random.default_rng(9)
+    wavs = [(rng.standard_normal((2, fused.audio.num_samples)) * 0.1).astype(np.float32)
+            for _ in range(3)]
+    for name, cfg in cases.items():
+        pipe = build_pipeline(torch, cfg)
+        fusable = sum(blk.fusable for blk in pipe.encoder.feature_encoder.conv_layers)
+        state, step = init_train_state(pipe), make_train_step(pipe)
+        before = [p.detach().clone() for p in pipe.unet.parameters()]
+        step(state, wavs[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for wav in wavs[1:]:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            _, aux = step(state, wav)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_cuda.LAUNCHES)
+        want = launches_of(a=3 * e.num_layers, b=1, c=2, d=3 * (len(e.conv_dim) - fusable),
+                           e=3 * fusable)
+        vec = aux["loss_vec"].cpu()
+        print(f"training step, {name}, 2 clips (bf16 embedder, fused_ln_gelu, fused_conv): "
+              f"{[round(t, 1) for t in times]} ms (the f32 UNet's steady "
+              f"{f32_step_ms:.1f} ms in this call), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, losses "
+              f"{[round(v, 5) for v in vec.tolist()]}")
+        if launches != want:
+            fail(f"training step {name}: launch counts {launches} != {want}")
+        if not bool(torch.isfinite(vec).all()) or abs(float(aux["w"].sum()) - 3.0) > 1e-4:
+            fail(f"training step {name}: losses {vec.tolist()}, w {aux['w'].tolist()}")
+        params = list(pipe.unet.parameters())
+        if not all(p.dtype == torch.float32 for p in params) or all(
+                torch.equal(a, p) for a, p in zip(before, params)):
+            fail(f"training step {name}: decoder parameters not f32 or unchanged")
+        paths[f"train_{name}_step"] = launches
+        del pipe, state, step
+        torch.cuda.empty_cache()
+    return paths
+
+
+def run_tiny_trainer_switches(torch) -> None:
+    """A tiny training step with each new switch on the card against the
+    same step on the CPU (conv widths of 128 and both fused frontend
+    switches, as `run_tiny_training`). The int8 target at the training
+    bars (losses 1e-4, the first mask 1e-5, decoder gradients 1e-3 of their
+    scale; the int32 products are exact on both devices). The bf16 UNet:
+    the first mask and the decoder gradients at mean |card - CPU| at most
+    the mean of the CPU's own bf16-vs-f32 deviation and max at most its
+    max, the losses at most 4x its largest (training-mode BatchNorm reduces
+    in each device's own order, so bf16 roundings flip where serving's
+    fixed statistics flip none)."""
+    from xai_audio_deepfakes_tpu_torch.config import (
+        AudioConfig,
+        EmbedderConfig,
+        PipelineConfig,
+        TrainConfig,
+        UNetConfig,
+    )
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    emb = dataclasses.replace(EmbedderConfig.tiny(), conv_dim=(128, 128, 128), fused_conv=True,
+                              fused_ln_gelu=True)
+    base = PipelineConfig(audio=AudioConfig(clip_seconds=0.5), embedder=emb,
+                          unet=UNetConfig(freq_bins=64, frames=24, base_channels=4))
+    wav = torch.randn(2, 8000, generator=torch.Generator().manual_seed(12)) * 0.1
+
+    def run(cfg, device, weights):
+        """One step from `weights` (encoder, UNet, head) on `device`."""
+        from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+
+        pipe = ADDvisorPipeline(cfg, device=device, seed=5)
+        pipe.encoder.load_state_dict(weights[0])
+        pipe.unet.load_state_dict(weights[1])
+        pipe.logreg = {k: v.to(pipe.device) for k, v in weights[2].items()}
+        _, aux = make_train_step(pipe)(init_train_state(pipe), wav.to(pipe.device))
+        grads = torch.cat([p.grad.flatten().cpu() for p in pipe.unet.parameters()])
+        return aux["loss_vec"].cpu(), aux["mask_first"].cpu(), grads
+
+    for name, cfg in (("target_quant int8", base.replace(train=TrainConfig(target_quant="int8"))),
+                      ("bf16 UNet", base.replace(unet=dataclasses.replace(base.unet,
+                                                                          dtype="bfloat16")))):
+        from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+
+        src = ADDvisorPipeline(cfg, device="cpu", seed=5)  # the weights, before any step
+        weights = ({k: v.clone() for k, v in src.encoder.state_dict().items()},
+                   {k: v.clone() for k, v in src.unet.state_dict().items()}, src.logreg)
+        card = run(cfg, "cuda", weights)
+        cpu = run(cfg, "cpu", weights)
+        ref = run(base, "cpu", weights)  # the exact target / f32 UNet, on the CPU
+        print(f"tiny training step, {name}, card vs CPU:")
+        for i, what in ((0, "losses"), (1, "first mask"), (2, "decoder gradients")):
+            got, want, own = card[i], cpu[i], ref[i]
+            if "int8" in name:
+                # the training bars of `run_tiny_training`
+                atol = {"losses": 1e-4, "first mask": 1e-5}.get(what, 1e-3 * float(
+                    want.abs().max()))
+                check_close(f"  {what}", got, want, atol)
+                print(f"    rel_l2 {rel_l2(got, want):.3e}, the int8 target's own distance "
+                      f"from the exact one {rel_l2(want, own):.3e}")
+                continue
+            err, dev = (got - want).abs(), (want - own).abs()
+            scale = 4.0 if what == "losses" else 1.0
+            ok = (what == "losses" or float(err.mean()) <= float(dev.mean())) and float(
+                err.max()) <= scale * float(dev.max())
+            print(f"  {what}: mean_abs_err {float(err.mean()):.3e} (own {float(dev.mean()):.3e}), "
+                  f"max_abs_err {float(err.max()):.3e} (bar {scale * float(dev.max()):.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"tiny training step {name}: {what} disagrees beyond its bar")
+
+
+def run_vocoder(torch, root: Path) -> dict:
+    """The vocoder path at full width in the CLI's default configuration
+    (`EmbedderConfig(dtype="bfloat16")`, the default `HiFiGANConfig`: f32,
+    512 initial channels) on BATCH seeded clips: `vocode` (B 1; output
+    [8, 80128], finite, in [-1, 1]; ms, its mel / HiFi-GAN split, peak
+    memory), `explain_vocoded(decoder="unet")` (A 9, B 2, C 2; ms beside the
+    explain's and the vocode's alone), then `generate_vocoded_dataset` over
+    datagen's 8 seeded wavs under `root/real` (64 band-spliced wavs; a file
+    B 3, C 1; leakage warnings counted; ms a file). Returns {path:
+    launches}."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
+    from xai_audio_deepfakes_tpu_torch.data.datasets import extract_wavs
+    from xai_audio_deepfakes_tpu_torch.data.vocoded import (
+        generate_vocoded_dataset,
+        make_vocoder_fn,
+    )
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.ops.mel import mel_spectrogram
+
+    cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16"))
+    e, n = cfg.embedder, cfg.audio.num_samples
+    pipe = build_pipeline(torch, cfg)
+    wav = torch.from_numpy(
+        (np.random.default_rng(30).standard_normal((BATCH, n)) * 0.1).astype(np.float32)).cuda()
+    paths = {}
+    with torch.inference_mode():
+        pipe.vocode(wav)  # warm-up, and the generator's first use builds it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        voc = pipe.vocode(wav)
+        torch.cuda.synchronize()
+        paths["vocode"] = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want_len = cfg.mel.hop_length * (1 + n // cfg.mel.hop_length)
+        ok = (tuple(voc.shape) == (BATCH, want_len) and bool(torch.isfinite(voc).all())
+              and float(voc.abs().max()) <= 1.0)
+        mel = mel_spectrogram(wav, cfg.mel)
+        split = {"mel (B + filterbank + log)": time_ms(lambda: mel_spectrogram(wav, cfg.mel), 5),
+                 "HiFi-GAN": time_ms(lambda: pipe.hifigan(mel), 5)}
+        vocode_ms = time_ms(lambda: pipe.vocode(wav), 5)
+        print(f"vocode B={BATCH} (HiFi-GAN f32, {cfg.hifigan.upsample_initial_channel} initial "
+              f"channels): {vocode_ms:.2f} ms, split "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f"; output {list(voc.shape)}, |max| {float(voc.abs().max()):.4f}; peak memory "
+              f"{peak:.2f} GiB; launches {paths['vocode']}")
+        if not ok or paths["vocode"] != launches_of(b=1):
+            fail(f"vocode: output {tuple(voc.shape)} (want {(BATCH, want_len)}), finite and "
+                 f"bounded {ok}, launches {paths['vocode']}")
+
+        pipe.explain_vocoded(wav)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        out, voc_rel = pipe.explain_vocoded(wav)
+        torch.cuda.synchronize()
+        paths["explain_vocoded"] = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = launches_of(a=e.num_layers, b=2, c=2)
+        rel = out.relevant_wav
+        split = {"explain": time_ms(lambda: pipe.explain(wav), 3),
+                 "vocode of the relevant clips": time_ms(lambda: pipe.vocode(rel), 3),
+                 "explain_vocoded": time_ms(lambda: pipe.explain_vocoded(wav), 3)}
+        print(f"explain_vocoded B={BATCH}, decoder unet (bf16 embedder, f32 UNet, f32 HiFi-GAN): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+              + f"; peak memory {peak:.2f} GiB; launches {paths['explain_vocoded']}")
+        if paths["explain_vocoded"] != want:
+            fail(f"explain_vocoded: launch counts {paths['explain_vocoded']} != {want}")
+        if tuple(voc_rel.shape) != (BATCH, want_len) or not bool(torch.isfinite(voc_rel).all()):
+            fail("explain_vocoded: the vocoded relevant clips are of the wrong shape or not finite")
+        check_close("explain_vocoded's vocoded clips vs vocode of its relevant clips", voc_rel,
+                    pipe.vocode(rel), 1e-5)
+
+    names = extract_wavs(str(root / "metadata.csv"))
+    out_dir = root / "vocoded_bands"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logs: list = []
+    generate_vocoded_dataset(names[:1], str(root / "real"), str(out_dir / "warm"),
+                             make_vocoder_fn(pipe))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    written = generate_vocoded_dataset(names, str(root / "real"), str(out_dir),
+                                       make_vocoder_fn(pipe), log_fn=logs.append)
+    wall = time.perf_counter() - t0  # every file written from host arrays: the device is done
+    paths["vocoded_datagen"] = dict(_cuda.LAUNCHES)
+    files = sorted(p.name for p in out_dir.glob("*.wav"))
+    print(f"generate_vocoded_dataset over {len(names)} wavs: {written} band-spliced wavs "
+          f"written, {len(files)} files, {wall / len(names) * 1e3:.1f} ms a file, leakage "
+          f"warnings {len(logs)}, launches {paths['vocoded_datagen']}")
+    if written != 8 * len(names) or len(files) != written:
+        fail(f"generate_vocoded_dataset: {written} written, {len(files)} files")
+    if paths["vocoded_datagen"] != launches_of(b=3 * len(names), c=len(names)):
+        fail(f"generate_vocoded_dataset: launch counts {paths['vocoded_datagen']}")
+    del pipe
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_tiny_vocoded(torch) -> None:
+    """A tiny `explain_vocoded` (tests/test_pipeline.py::tiny_config's
+    HiFi-GAN) on the card against the CPU with the same weights: mask 1e-5,
+    waveforms 2e-4, probabilities 1e-4, the vocoded clips 1e-4 (their mel
+    comes from waveforms within 2e-4, through a log)."""
+    from xai_audio_deepfakes_tpu_torch.config import (
+        AudioConfig,
+        EmbedderConfig,
+        HiFiGANConfig,
+        PipelineConfig,
+        UNetConfig,
+    )
+
+    cfg = PipelineConfig(
+        audio=AudioConfig(clip_seconds=0.5), embedder=EmbedderConfig.tiny(),
+        unet=UNetConfig(freq_bins=64, frames=24, base_channels=4),
+        hifigan=HiFiGANConfig(upsample_initial_channel=8, upsample_rates=(4, 2),
+                              upsample_kernel_sizes=(8, 4), resblock_kernel_sizes=(3,),
+                              resblock_dilations=((1, 3),)))
+    gpu, cpu = twin_pipelines(torch, cfg)
+    cpu.hifigan.load_state_dict(gpu.hifigan.state_dict())
+    wav = torch.randn(2, 8000, generator=torch.Generator().manual_seed(13)) * 0.1
+    out_g, voc_g = gpu.explain_vocoded(wav.to(gpu.device))
+    out_c, voc_c = cpu.explain_vocoded(wav)
+    torch.cuda.synchronize()
+    for name, atol in (("mask", 1e-5), ("relevant_wav", 2e-4), ("irrelevant_wav", 2e-4),
+                       ("probs_clean", 1e-4), ("probs_relevant", 1e-4), ("probs_irrelevant", 1e-4)):
+        check_close(f"tiny explain_vocoded {name}", getattr(out_g, name).cpu(),
+                    getattr(out_c, name), atol)
+    check_close("tiny explain_vocoded vocoded relevant clips", voc_g.cpu(), voc_c, 1e-4)
+
+
 def main() -> int:
     import torch
 
@@ -2049,7 +2554,7 @@ def main() -> int:
     # same seed, same weights: the two frontends differ by bf16 rounding only
     check_close("explain fused_conv probabilities vs default", counts[1][1], counts[0][1], 0.05)
     torch.cuda.empty_cache()
-    train_launches = run_training(torch, fused)
+    train_launches, f32_step_ms = run_training(torch, fused)
     torch.cuda.empty_cache()
     paths.update(run_training_remat(torch, fused))
     paths["train_features_step"] = run_features_training(torch, fused)
@@ -2058,6 +2563,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_hf_import(torch, tiny_aligned_config(), 2, "bin", "tiny width")
     run_tiny_training(torch)
+    paths.update(run_trainer_switches(torch, fused, f32_step_ms))
+    torch.cuda.empty_cache()
+    run_tiny_trainer_switches(torch)
     run_tiny_features_and_attribution(torch)
 
     # the JAX package's serving configurations: the entry point's (bf16,
@@ -2087,6 +2595,10 @@ def main() -> int:
     paths.update(run_detector_corpus(torch, wav_root))
     run_solver_full_width(torch)
     run_tiny_detector(torch)
+    # the vocoder over datagen's wavs, then the reduced closed loop
+    paths.update(run_vocoder(torch, wav_root))
+    run_tiny_vocoded(torch)
+    paths.update(run_closed_loop_reduced(torch, wav_root))
     # after every full-width phase (ROADMAP Queue 3: a mask miss seen once there)
     run_tiny_reference(torch)
 

@@ -3,7 +3,7 @@
 goes, on the card. A development profiler, run from the root of a checkout:
 
     python3 profile_explain.py [--batch 8] [--out FILE] [--cudnn-benchmark] [--fused-conv]
-    python3 profile_explain.py --train [--batch 2] [--out FILE]
+    python3 profile_explain.py --train [--batch 2] [--unet-dtype bfloat16] [--out FILE]
 
 Builds the full-width pipeline of `chip_smoke.py` (bf16 XLS-R-2B truncation,
 default UNet, random weights from a seed), then
@@ -18,7 +18,8 @@ default UNet, random weights from a seed), then
 
 With --train it profiles LMAC training steps of the UNet decoder instead
 (`chip_smoke.py`'s training configuration: bf16 embedder with both fused
-frontend kernels, f32 UNet): the device time of each phase of a step
+frontend kernels, f32 UNet, or the bf16 UNet with --unet-dtype
+bfloat16): the device time of each phase of a step
 (collate, forward, backward, optimiser; mean of 5 steps) and the same
 kernel table and busy share over 5 traced steps.
 
@@ -80,17 +81,18 @@ def _summarise(prof, reps: int, wall_ms: float) -> dict:
             "device_busy_share": device_ms / (wall_ms / reps), "top_kernels": kernels[:25]}
 
 
-def profile_training(torch, batch: int | None) -> dict:
+def profile_training(torch, batch: int | None, unet_dtype: str = "float32") -> dict:
     import dataclasses
 
     import numpy as np
 
-    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
+    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig, UNetConfig
     from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
     from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
 
     cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True,
-                                                 fused_conv=True))
+                                                 fused_conv=True),
+                         unet=UNetConfig(dtype=unet_dtype))
     if batch is not None:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch))
     b = cfg.train.batch_size
@@ -149,6 +151,8 @@ def main(argv=None) -> int:
                     help="clips per explain (default 8) or per training step "
                          "(default TrainConfig.batch_size)")
     ap.add_argument("--train", action="store_true", help="profile training steps instead")
+    ap.add_argument("--unet-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="with --train: the trained UNet's compute dtype")
     ap.add_argument("--fused-conv", action="store_true",
                     help="explain with EmbedderConfig(fused_conv=True): kernel E for frontend "
                          "layers 1-6")
@@ -163,7 +167,7 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     if args.train:
-        return _emit(profile_training(torch, args.batch), args.out)
+        return _emit(profile_training(torch, args.batch, args.unet_dtype), args.out)
     from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
     from xai_audio_deepfakes_tpu_torch.ops.masking import apply_mask, remask_complex
     from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm

@@ -77,10 +77,11 @@ def test_explain_matches_jax_jit_explain(jax_params, masking):
 
 
 def test_port_runs_without_jax():
-    """Import every module of the port, run the tiny explain and the tiny
+    """Import every module of the port, run the tiny explain, the tiny
     detector path (a wav written and read back, band splices and their
-    features, the L-BFGS fit) on the CPU in a process where `import jax` and
-    `import xai_audio_deepfakes_tpu` fail."""
+    features, the L-BFGS fit) and the vocoded datagen of one file on the CPU
+    in a process where `import jax` and `import xai_audio_deepfakes_tpu`
+    fail."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -114,6 +115,13 @@ def test_port_runs_without_jax():
         "    pairs, lambda w: pipe.features(w).mean(dim=1), device='cpu')\n"
         "metrics = evaluate_logreg(fit_logreg(x, y, max_iter=5, device='cpu'), x, y)\n"
         "assert x.shape == (18, 32) and 0 <= metrics['eer'] <= 1\n"
+        "from xai_audio_deepfakes_tpu_torch.config import HiFiGANConfig\n"
+        "from xai_audio_deepfakes_tpu_torch.data.vocoded import generate_vocoded_dataset\n"
+        "hg = HiFiGANConfig(upsample_initial_channel=16)\n"
+        "voc = ADDvisorPipeline(cfg.replace(hifigan=hg), device='cpu')\n"
+        "n = generate_vocoded_dataset(['0.wav'], d, os.path.join(d, 'bands'), voc.vocode,\n"
+        "                             clip_seconds=0.5, device='cpu')\n"
+        "assert n == 8, n\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -130,7 +138,8 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|xai_audio_deepfakes_tpu|transformers|"
         r"safetensors|sklearn)(\.|\s|$)", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_explain.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_explain.py",
+                                          ROOT / "closed_loop_protocol.py"]
     assert len(files) > 10
     for path in files:
         hits = pattern.findall(path.read_text())
@@ -280,9 +289,15 @@ def test_formulation_switches(jax_params, bf16_reference, fused_ln_gelu, precisi
 
 
 def test_unported_entry_points_raise():
-    """Vocoding is still to port. (`explain(decoder="features")` runs since
-    it was ported: tests/test_torch_feat_decoder.py.)"""
+    """Vocoding runs since it was ported (held against JAX in
+    tests/test_torch_vocoder.py): 256 samples a mel frame. What is still to
+    port is the parallel layer, and its entry points refuse: the sharded
+    sweep raises, citing ROADMAP.md."""
+    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_explanation_metrics
+
     pipe = ADDvisorPipeline(_tiny(tc), device="cpu")
     wav = np.zeros((1, 8000), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.vocode(wav)
+    voc = pipe.vocode(wav)
+    assert voc.shape == (1, 256 * (1 + 8000 // 256)) and bool(torch.isfinite(voc).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        run_explanation_metrics(pipe, [wav], mesh=object())

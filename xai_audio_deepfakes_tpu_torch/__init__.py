@@ -5,23 +5,26 @@ The JAX package beside it is the reference; this package imports nothing of
 it, and nothing of JAX. Its layout mirrors the JAX package's:
 
 config    the configuration dataclasses (own copies)
-ops       DSP, masking, resampling, waveform alignment and the kernel
-          wrappers (attention, STFT/iSTFT, LayerNorm+GELU,
+ops       DSP, masking, resampling, waveform alignment, the mel frontend and
+          the kernel wrappers (attention, STFT/iSTFT, LayerNorm+GELU,
           conv+LayerNorm+GELU), each with its plain PyTorch version and a
           gradient
 csrc      the hand-written CUDA kernels, built with nvcc at first use
 models    UNet and feature mask decoders, wav2vec2 XLS-R embedder (with the
-          HF checkpoint import), LogReg head
-pipeline  `ADDvisorPipeline.explain(decoder="unet" | "features")`, end to end
+          HF checkpoint import), LogReg head, HiFi-GAN generator
+pipeline  `ADDvisorPipeline.explain(decoder="unet" | "features")`, `vocode`
+          and `explain_vocoded`, end to end
 losses    the LMAC loss
-train     LMAC training of either mask decoder (`train_addvisor`), checkpoints,
-          the detector head's L-BFGS fit (`train_logreg`)
+train     LMAC training of either mask decoder (`train_addvisor`), async
+          checkpoints, PNG artifacts, the detector head's L-BFGS fit
+          (`train_logreg`), the closed loop and the band probe
 metrics   the LMAC faithfulness metrics, EER, the eval and attribution
           harnesses, mask localisation against a known band
 attrib    gradient attribution over the waveform (saliency, input x gradient,
           integrated gradients, SmoothGrad, GradientShap)
 data      audio I/O (native, scipy, wave), dataset scanners and the batcher,
-          the prefetcher, band-splice datagen and the synthetic corpora
+          the prefetcher, band-splice datagen (from wav pairs or vocoded)
+          and the synthetic corpora
 convert   the weight bridge from and to the JAX package's parameter tree
 
 Entry points run on CUDA unless the caller passes device="cpu".

@@ -4,9 +4,9 @@ Field names and defaults are those of `xai_audio_deepfakes_tpu/config.py`, so
 a configuration reads the same on both sides. The port keeps its own copies
 (it imports nothing of the JAX package). `PipelineConfig` carries the
 sub-configs of the explanation path (`explain`, with the UNet or the
-feature decoder) and of LMAC training of either decoder (`loss`, `train`);
-the mel, vocoder and mesh configs arrive with the slices that use them
-(ROADMAP.md, Queue 1).
+feature decoder), of LMAC training of either decoder (`loss`, `train`) and
+of the vocoder path (`mel`, `hifigan`); the mesh config arrives with the
+parallel layer (ROADMAP.md, Queue 1 item 11).
 
 The JAX package's implementation switches select formulations, and the
 port runs each formulation it accepts with the same cast points: its
@@ -36,8 +36,8 @@ PyTorch on both.
 - `EmbedderConfig.quant` "int8" / "int8-static", `quant_conv="int8"` and
   `UNetConfig.quant="int8"`: the int8 serving paths (`ops/quant.py`);
   int8-static uses the scales of `ADDvisorPipeline.calibrate_quant`.
-- `UNetConfig.dtype="bfloat16"`: bf16 convolutions with f32 BatchNorm,
-  serving only; the trainer refuses it (ROADMAP Queue 1 item 7).
+- `UNetConfig.dtype="bfloat16"`: bf16 convolutions with f32 BatchNorm and
+  f32 parameters, for serving and training (the casts carry the gradient).
 - `EmbedderConfig.remat=True` checkpoints each transformer layer
   (`torch.utils.checkpoint`): `remat_policy="full"` recomputes the whole
   layer in the backward pass, "dots" keeps the products' outputs (`mm`,
@@ -48,11 +48,16 @@ PyTorch on both.
   `convert.load_encoder` and `params_from_hf_state_dict` read and write; the
   numbers are the unrolled encoder's, and the port's layer loop stays a
   loop.
-- `TrainConfig.target_quant` other than "none" raises (ROADMAP Queue 1
-  item 7); `target_gelu="tanh"` is accepted.
+- `TrainConfig.target_quant="int8"` and `target_gelu="tanh"` run the
+  gradient-free target embed through a second encoder module over the same
+  weights (`Wav2Vec2Encoder.with_config`): dynamic per-token int8 products,
+  as `quant="int8"` serves.
+- `HiFiGANConfig.dtype="bfloat16"`: the generator's convolutions in bf16
+  (bias added in bf16), tanh in f32.
 
-Fields that select behaviour the port does not implement yet raise
-`NotImplementedError`, citing their ROADMAP item.
+`check_supported` raises ValueError on a value that selects no
+formulation. `MelConfig.norm` and `mel_scale` are read as in the JAX package:
+the filterbank is slaney whatever they say.
 """
 
 from __future__ import annotations
@@ -124,6 +129,26 @@ class AudioConfig:
     def num_frames(self, stft: STFTConfig) -> int:
         assert stft.center
         return 1 + self.num_samples // stft.hop_length
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    """Mel transform of the vocoder path: hop 256, win 1024 (periodic Hann),
+    80 mels, f_max 8 kHz, slaney norm and scale, power 1, log compression
+    with a 1e-5 clip."""
+
+    sample_rate: int = 16000
+    n_fft: int = 1024
+    hop_length: int = 256
+    win_length: int = 1024
+    n_mels: int = 80
+    f_min: float = 0.0
+    f_max: float = 8000.0
+    power: float = 1.0
+    norm: str = "slaney"
+    mel_scale: str = "slaney"
+    compression: bool = True
+    compression_clip: float = 1e-5
 
 
 @dataclass(frozen=True)
@@ -205,6 +230,21 @@ class FeatDecoderConfig:
 
 
 @dataclass(frozen=True)
+class HiFiGANConfig:
+    """HiFi-GAN V1 generator with 256x upsampling (rates 8, 8, 2, 2), to
+    match the hop-256 mel frontend: 16 kHz speech from 80 mels."""
+
+    in_channels: int = 80
+    upsample_initial_channel: int = 512
+    upsample_rates: tuple = (8, 8, 2, 2)
+    upsample_kernel_sizes: tuple = (16, 16, 4, 4)
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilations: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    leaky_slope: float = 0.1
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class LossConfig:
     """LMAC loss: learnable softplus weights over [l_in, l_out, l1], raw
     init [3.0, 0.5, 3.0]; optional TV regulariser (off at reg_w_tv = 0).
@@ -242,7 +282,7 @@ class TrainConfig:
     artifact_dir: str = "explanations"
     checkpoint_every: int = 1
     donate_buffers: bool = True
-    target_quant: str = "none"  # "none" | "int8" (int8 not ported yet)
+    target_quant: str = "none"  # "none" | "int8"
     target_gelu: str = "exact"  # "exact" | "tanh"
     freeze_l1_weight: bool = False
 
@@ -251,9 +291,11 @@ class TrainConfig:
 class PipelineConfig:
     audio: AudioConfig = AudioConfig()
     stft: STFTConfig = STFTConfig()
+    mel: MelConfig = MelConfig()
     embedder: EmbedderConfig = EmbedderConfig()
     unet: UNetConfig = UNetConfig()
     feat_decoder: FeatDecoderConfig = FeatDecoderConfig()
+    hifigan: HiFiGANConfig = HiFiGANConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
     masking: MaskingConvention = MaskingConvention.LOG1P
@@ -264,11 +306,8 @@ class PipelineConfig:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise on configuration the port does not implement."""
+    """Raise on a value that selects no formulation."""
     e, u = cfg.embedder, cfg.unet
-    if cfg.train.target_quant != "none":
-        raise NotImplementedError(
-            "TrainConfig.target_quant is not ported yet (ROADMAP.md Queue 1 item 7)")
     choices = {
         "STFT precision": (cfg.stft.precision, ("default", "high", "highest")),
         "embedder dtype": (e.dtype, ("float32", "bfloat16")),
@@ -280,6 +319,8 @@ def check_supported(cfg: PipelineConfig) -> None:
         "UNet quant": (u.quant, ("none", "int8")),
         "gelu": (e.gelu, ("exact", "tanh")),
         "target gelu": (cfg.train.target_gelu, ("exact", "tanh")),
+        "target quant": (cfg.train.target_quant, ("none", "int8")),
+        "HiFi-GAN dtype": (cfg.hifigan.dtype, ("float32", "bfloat16")),
     }
     for name, (value, allowed) in choices.items():
         if value not in allowed:

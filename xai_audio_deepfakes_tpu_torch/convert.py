@@ -23,6 +23,9 @@ The layout rules invert those of the JAX package's importers
                                    -> weight/bias/running_mean/running_var
   attention q/k/v [in, heads, hd]  -> Linear [heads * hd, in]
   attention out [heads, hd, out]   -> Linear [out, heads * hd]
+  HiFi-GAN conv [k, in, out]       -> Conv1d [out, in, k]
+  HiFi-GAN ConvTranspose [k, out, in] (`transpose_kernel=True`)
+                                   -> ConvTranspose1d [in, out, k]
 The encoder's transformer layers come unrolled (`layer_{i}`) or stacked
 (`layers/layer`, a leading [n_layers] axis, `EmbedderConfig.scan_layers`).
 """
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from xai_audio_deepfakes_tpu_torch.models.feat_decoder import FeatureMaskDecoder
+from xai_audio_deepfakes_tpu_torch.models.hifigan import HiFiGANGenerator
 from xai_audio_deepfakes_tpu_torch.models.unet import UNetMaskDecoder
 from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, tree_map
 
@@ -247,6 +251,29 @@ def load_encoder(enc: Wav2Vec2Encoder, params: dict) -> None:
         _set(enc.final_ln.bias, params["final_ln"]["bias"])
 
 
+def load_hifigan(model: HiFiGANGenerator, variables: dict) -> None:
+    """flax HiFiGANGenerator variables ({"params": tree}) -> `model`. Both
+    kernel layouts map by reversing their axes: a conv's [k, in, out] to
+    [out, in, k], a transposed conv's [k, out, in] to [in, out, k]."""
+    p = variables["params"]
+    cfg = model.cfg
+    n_res = len(cfg.resblock_kernel_sizes)
+
+    def conv(module, leaf):
+        _set(module.weight, np.asarray(leaf["kernel"]).transpose(2, 1, 0))
+        _set(module.bias, leaf["bias"])
+
+    conv(model.conv_pre, p["conv_pre"])
+    for i, up in enumerate(model.ups):
+        conv(up, p[f"up_{i}"])
+        for j in range(n_res):
+            block, leaf = model.resblocks[i * n_res + j], p[f"res_{i}_{j}"]
+            for t, (c1, c2) in enumerate(zip(block.convs1, block.convs2)):
+                conv(c1, leaf[f"conv1_{t}"])
+                conv(c2, leaf[f"conv2_{t}"])
+    conv(model.conv_post, p["conv_post"])
+
+
 def load_quant_scales(pipe, scales: dict) -> None:
     """A JAX `params["quant_scales"]` tree ({site: [n_layers, C_site]}, the
     output of its `calibrate_quant`) -> the pipeline's static int8 scales."""
@@ -255,8 +282,9 @@ def load_quant_scales(pipe, scales: dict) -> None:
 
 def load_jax_params(pipe, params: dict) -> None:
     """Set every weight of a port `ADDvisorPipeline` from a JAX pipeline's
-    numpy parameter tree, and its static int8 scales where the tree carries
-    them."""
+    numpy parameter tree (the HiFi-GAN's where the tree has one, as
+    `init_params(with_hifigan=True)` makes it), and its static int8 scales
+    where the tree carries them."""
     load_encoder(pipe.encoder, params["encoder"]["params"])
     load_unet(pipe.unet, params["unet"])
     if "feat_decoder" in params:
@@ -267,3 +295,5 @@ def load_jax_params(pipe, params: dict) -> None:
     }
     if "quant_scales" in params:
         load_quant_scales(pipe, params["quant_scales"])
+    if "hifigan" in params:
+        load_hifigan(pipe.hifigan, params["hifigan"])

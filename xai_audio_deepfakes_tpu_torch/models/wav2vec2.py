@@ -462,16 +462,27 @@ class Wav2Vec2Encoder(nn.Module):
                                                     _dots_policy)}
         return {}
 
-    def with_gelu(self, gelu: str) -> "Wav2Vec2Encoder":
+    def with_config(self, gelu: str, quant: str) -> "Wav2Vec2Encoder":
         """A second encoder over the SAME parameters whose modules compute
-        `gelu` ("exact" | "tanh"): the trainer's gradient-free target pass
-        (`TrainConfig.target_gelu`). No weight is copied."""
+        `gelu` ("exact" | "tanh") and whose transformer layers and positional
+        conv take `quant` ("none" | "int8": dynamic per-token int8 products
+        of the weights as they are stored): the trainer's gradient-free
+        target pass (`TrainConfig.target_gelu`, `target_quant`). No weight is
+        copied; the int8 images are kept on the second module."""
         shared = {id(p): p for p in self.parameters()}
         view = copy.deepcopy(self, shared)
-        cfg = dataclasses.replace(self.cfg, gelu=gelu)
+        cfg = dataclasses.replace(self.cfg, gelu=gelu, quant=quant)
+        q = quant != "none"
         for module in view.modules():
             if hasattr(module, "cfg"):
                 module.cfg = cfg
+            # every module whose quant flag follows cfg.quant at construction
+            if isinstance(module, (EncoderLayer, PositionalConvEmbedding)):
+                module.quant = q
+        for layer in view.layers:
+            for dense in (layer.q_proj, layer.k_proj, layer.v_proj, layer.out_proj,
+                          layer.ffn_in, layer.ffn_out):
+                dense.quant = q
         return view
 
     def forward(self, wav: torch.Tensor, act_scales: dict | None = None,

@@ -2,14 +2,17 @@
 wav -> STFT -> UNet mask -> masked iSTFTs -> one 3B-batch embedder pass ->
 LogReg -> three probabilities; or, with the feature decoder, wav -> one
 B-batch embed whose features give the mask and the clean probability ->
-masked iSTFTs -> one 2B-batch embed of the masked clips.
+masked iSTFTs -> one 2B-batch embed of the masked clips; and the listenable
+path, wav -> log-mel (kernel B) -> HiFi-GAN -> wav (`vocode`), after an
+explain (`explain_vocoded`).
 
 The JAX pipeline is a frozen bundle of module definitions whose stages are
 pure functions of (params, arrays). Here the pipeline owns its modules and
 their weights; `convert.load_jax_params` sets them from a JAX parameter tree,
 and a fresh pipeline has random weights drawn from a seeded torch.Generator
-(embedder, UNet, LogReg head, then the feature decoder, so that the modules
-drawn before it keep their weights). The embedder and the LogReg head are
+(embedder, UNet, LogReg head, the feature decoder, then, at its first use,
+the HiFi-GAN generator, so that the modules drawn before each keep their
+weights). The embedder and the LogReg head are
 frozen; a mask decoder (`unet` or `feat_decoder`) is what training updates,
 in place.
 
@@ -36,6 +39,7 @@ from xai_audio_deepfakes_tpu_torch.config import (
 )
 from xai_audio_deepfakes_tpu_torch.device import resolve_device
 from xai_audio_deepfakes_tpu_torch.models.feat_decoder import FeatureMaskDecoder
+from xai_audio_deepfakes_tpu_torch.models.hifigan import HiFiGANGenerator, init_hifigan_
 from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply, logreg_init
 from xai_audio_deepfakes_tpu_torch.models.unet import UNetMaskDecoder, init_unet_
 from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
@@ -46,6 +50,7 @@ from xai_audio_deepfakes_tpu_torch.ops.masking import (
     pad_mask_to_spec,
     remask_complex,
 )
+from xai_audio_deepfakes_tpu_torch.ops.mel import mel_spectrogram
 from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
 
 
@@ -61,8 +66,8 @@ class ExplainOutput(NamedTuple):
 
 
 class ADDvisorPipeline:
-    """Owns the embedder, the UNet, the LogReg head and the feature decoder
-    on one device.
+    """Owns the embedder, the UNet, the LogReg head, the feature decoder and
+    the HiFi-GAN generator on one device.
 
     `device` defaults to "cuda" and raises when CUDA is missing; pass
     device="cpu" to run the kernels' plain versions on the CPU.
@@ -86,6 +91,18 @@ class ADDvisorPipeline:
         self.logreg = logreg_init(cfg.embedder.hidden_size, gen, self.device)
         self.feat_decoder = FeatureMaskDecoder(cfg.feat_decoder, gen, self.device).eval()
         self.quant_scales: dict | None = None
+        self._gen, self._hifigan = gen, None
+
+    @property
+    def hifigan(self) -> HiFiGANGenerator:
+        """The vocoder, drawn from the pipeline's generator at its first use
+        (a pipeline that never vocodes builds none); `convert.load_hifigan`
+        or `load_state_dict(params_from_torch_state_dict(...))` set it."""
+        if self._hifigan is None:
+            with torch.inference_mode(False):  # normal tensors, even from `vocode`
+                model = HiFiGANGenerator(self.cfg.hifigan).to(self.device)
+                self._hifigan = init_hifigan_(model, self._gen).eval().requires_grad_(False)
+        return self._hifigan
 
     def _as_input(self, wav) -> torch.Tensor:
         return torch.as_tensor(wav, dtype=torch.float32, device=self.device).contiguous()
@@ -204,5 +221,17 @@ class ADDvisorPipeline:
             probs_irrelevant=probs[2 * b :],
         )
 
-    def vocode(self, wav):
-        raise NotImplementedError("vocoding is not ported yet (ROADMAP.md Queue 1 item 8)")
+    @torch.inference_mode()
+    def vocode(self, wav) -> torch.Tensor:
+        """Listenable synthesis: wav [B, L] -> log-mel -> HiFi-GAN -> wav
+        [B, 256 (1 + L // 256)] f32."""
+        return self.hifigan(mel_spectrogram(self._as_input(wav), self.cfg.mel))
+
+    @torch.inference_mode()
+    def explain_vocoded(self, wav, decoder: str = "unet",
+                        masking: MaskingConvention | None = None
+                        ) -> tuple[ExplainOutput, torch.Tensor]:
+        """The full listenable path: `explain`, then the relevant waveform
+        through `vocode` -> (ExplainOutput, vocoded relevant [B, L'])."""
+        out = self.explain(wav, decoder, masking)
+        return out, self.vocode(out.relevant_wav)

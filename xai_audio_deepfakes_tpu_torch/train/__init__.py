@@ -1,1 +1,2 @@
-"""Training loops, checkpoints."""
+"""Training loops, checkpoints, artifacts, the detector fit, the closed loop
+and the band probe."""

@@ -39,7 +39,12 @@ from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply
 from xai_audio_deepfakes_tpu_torch.models.unet import load_reference_state_dict
 from xai_audio_deepfakes_tpu_torch.ops.masking import crop_spec
 from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
-from xai_audio_deepfakes_tpu_torch.train.checkpoints import load_checkpoint
+from xai_audio_deepfakes_tpu_torch.train.checkpoints import (
+    HostSnapshot,
+    load_checkpoint,
+    record_event,
+    to_host,
+)
 
 
 def decoder_params_key(decoder: str) -> str:
@@ -50,13 +55,6 @@ def decoder_params_key(decoder: str) -> str:
     if decoder == "features":
         return "feat_decoder"
     raise ValueError(f"unknown decoder {decoder!r}")
-
-
-def _check_trainable(cfg: PipelineConfig, decoder: str) -> None:
-    if decoder_params_key(decoder) == "unet" and cfg.unet.dtype != "float32":
-        raise NotImplementedError(
-            "training the bf16 UNet (UNetConfig.dtype=bfloat16) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
 
 
 def make_optimizers(cfg: PipelineConfig, decoder_params, w_raw: torch.Tensor):
@@ -93,7 +91,6 @@ class AddvisorTrainState:
 def init_train_state(pipe: ADDvisorPipeline, decoder: str = "unet") -> AddvisorTrainState:
     """A fresh state over the pipeline's own mask decoder (trained in
     place)."""
-    _check_trainable(pipe.cfg, decoder)
     model = getattr(pipe, decoder_params_key(decoder))
     w_raw = init_w_raw(pipe.cfg.loss, pipe.device)
     opt_model, opt_w = make_optimizers(pipe.cfg, model.parameters(), w_raw)
@@ -121,15 +118,16 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     (`device.deterministic_cudnn`), so two identical steps on the card give
     the same losses and gradients bit for bit, as the JAX step does.
     """
-    _check_trainable(pipe.cfg, decoder)
     cfg = pipe.cfg
     mark = mark or (lambda name: None)
     features = decoder_params_key(decoder) == "feat_decoder"
     # With the UNet the clean embed only produces the gradient-free target,
-    # so it may take another GELU (TrainConfig.target_gelu): a second module
-    # over the same weights.
-    target_encoder = (pipe.encoder.with_gelu(cfg.train.target_gelu)
-                      if cfg.train.target_gelu != "exact" and not features else None)
+    # so it may take another GELU and int8 products (TrainConfig.target_gelu,
+    # target_quant): a second module over the same weights.
+    tc = cfg.train
+    target_encoder = (pipe.encoder.with_config(tc.target_gelu, tc.target_quant)
+                      if (tc.target_gelu != "exact" or tc.target_quant != "none")
+                      and not features else None)
 
     def classify_wav(wav: torch.Tensor, encoder=None) -> torch.Tensor:
         feats = pipe.embed(wav, encoder)
@@ -193,28 +191,40 @@ def train_addvisor(
     batches: Callable[[], Any],
     num_epochs: int | None = None,
     log_fn: Callable[[dict], None] | None = None,
-    checkpoint_fn: Callable[[int, AddvisorTrainState, float], None] | None = None,
+    artifact_fn: Callable[[int, torch.Tensor, dict], None] | None = None,
+    checkpoint_fn: Callable[[int, Any, float], None] | None = None,
     initial_state: AddvisorTrainState | None = None,
     decoder: str = "unet",
     l1_scale: float | None = None,
     l1_warmup_epochs: int = 0,
 ) -> AddvisorTrainState:
     """Epoch loop. `batches()` yields wav arrays [B, num_samples] for one
-    epoch. Logging and checkpointing are injected. Pass `initial_state` (a
-    restored checkpoint) to resume. `l1_scale` overrides `cfg.loss.l1_scale`;
+    epoch. Logging, artifacts and checkpointing are injected:
+    `artifact_fn(epoch, mask, aux)` gets each epoch's first step's first
+    mask (on the device) and that step's aux; `checkpoint_fn(epoch, state,
+    loss)` gets, every `cfg.train.checkpoint_every` epochs, a
+    `checkpoints.HostSnapshot` of the state at that epoch's end (it has
+    `state_dict()` and `step`; `save_checkpoint` writes it with no second
+    copy). Pass `initial_state` (a restored checkpoint)
+    to resume. `l1_scale` overrides `cfg.loss.l1_scale`;
     `l1_warmup_epochs` ramps it linearly from 1.0 to `l1_scale` over that
     many epochs.
 
     The host stays off the hot path: batches are staged onto the device by a
     background thread that runs ahead across epoch boundaries, per-step
-    losses stay on the device, and one [n, 4] fold per epoch brings them to
-    the host. A probe every `cfg.train.nan_check_every` steps bounds how long
-    a diverged run continues; the fold names the exact failing step."""
+    losses stay on the device, and each epoch's [n, 4] fold is copied to the
+    host asynchronously and finalised (record, `log_fn`, `checkpoint_fn`)
+    one epoch late, so the host never waits for the device at a boundary.
+    The last epoch drains: its `sec` covers the real compute, where an
+    earlier epoch's covers the host's time between its boundaries. A probe
+    every `cfg.train.nan_check_every` steps bounds how long a diverged run
+    continues; the fold names the exact failing step."""
     cfg = pipe.cfg
     state = init_train_state(pipe, decoder) if initial_state is None else initial_state
     step_fn = make_train_step(pipe, decoder)
     num_epochs = cfg.train.num_epochs if num_epochs is None else num_epochs
     nan_every = cfg.train.nan_check_every
+    every = cfg.train.checkpoint_every
 
     def _l1_for_epoch(e: int) -> float | None:
         if l1_scale is None:
@@ -242,9 +252,30 @@ def train_addvisor(
             if not got:
                 yield epoch, None  # keep the per-epoch record contract
 
-    def _finish_epoch(epoch: int, loss_vecs: list, t0: float) -> float:
-        vals = (torch.stack(loss_vecs) if loss_vecs else torch.zeros((0, 4))).cpu()
-        t1 = time.perf_counter()  # the copy above waited for the device
+    def _finish_epoch(epoch: int, loss_vecs: list, t0: float, drain: bool = False):
+        """Stage the epoch's fold: its losses and loss weights start their
+        copy to the host now (in stream order, before the next epoch's
+        steps), and on checkpoint epochs the state its snapshot; `_finalize`
+        reads them one boundary later. With `drain` (the last epoch) the
+        host waits for the device first, so that `sec` covers the compute."""
+        dev = state.w_raw.device
+        vec = torch.stack(loss_vecs) if loss_vecs else torch.zeros((0, 4), device=dev)
+        w = softplus_weights(state.w_raw.detach())
+        snap = HostSnapshot(state) if checkpoint_due(epoch) else None
+        if drain:
+            vec, w, ready = vec.cpu(), w.cpu(), None
+        else:
+            vec, w = to_host(vec, non_blocking=True), to_host(w, non_blocking=True)
+            ready = record_event(dev)
+        return epoch, vec, w, snap, ready, t0, time.perf_counter()
+
+    def checkpoint_due(epoch: int) -> bool:
+        return checkpoint_fn is not None and bool(every) and (epoch + 1) % every == 0
+
+    def _finalize(staged) -> None:
+        epoch, vals, w, snap, ready, t0, t1 = staged
+        if ready is not None:
+            ready.synchronize()
         _raise_nonfinite(epoch, vals)
         n = max(vals.shape[0], 1)
         sums = vals.double().sum(dim=0)
@@ -253,30 +284,37 @@ def train_addvisor(
             log_fn({
                 "epoch": epoch + 1, "loss": avg, "l_in": float(sums[1]) / n,
                 "l_out": float(sums[2]) / n, "l1": float(sums[3]) / n,
-                "w": softplus_weights(state.w_raw.detach()).tolist(), "sec": t1 - t0,
+                "w": w.tolist(), "sec": t1 - t0,
             })
-        every = cfg.train.checkpoint_every
-        if checkpoint_fn is not None and every and (epoch + 1) % every == 0:
-            checkpoint_fn(epoch + 1, state, avg)
-        return t1
+        if snap is not None:
+            checkpoint_fn(epoch + 1, snap, avg)
 
-    cur_epoch, i, loss_vecs = 0, 0, []
+    cur_epoch, i, loss_vecs, staged_prev = 0, 0, [], None
     t0 = time.perf_counter()
     for epoch, wav in prefetch(_epoch_stream(), size=2):
         if epoch != cur_epoch:
-            # epochs tile wall-clock: the next starts where this one ended
-            t0 = _finish_epoch(cur_epoch, loss_vecs, t0)
+            staged = _finish_epoch(cur_epoch, loss_vecs, t0)
+            if staged_prev is not None:
+                _finalize(staged_prev)
+            staged_prev = staged
             cur_epoch, i, loss_vecs = epoch, 0, []
+            # epochs tile wall-clock: the next starts where this one was staged
+            t0 = staged[-1]
         if wav is None:  # empty epoch placeholder
             continue
         _, aux = step_fn(state, wav, l1_scale=_l1_for_epoch(epoch))
+        if i == 0 and artifact_fn is not None:
+            artifact_fn(epoch, aux["mask_first"], aux)
         loss_vecs.append(aux["loss_vec"])
         if nan_every and (i + 1) % nan_every == 0 and not bool(
                 torch.isfinite(aux["loss_vec"]).all()):
             _raise_nonfinite(epoch, torch.stack(loss_vecs).cpu())
         i += 1
     if num_epochs > 0:
-        _finish_epoch(cur_epoch, loss_vecs, t0)
+        staged = _finish_epoch(cur_epoch, loss_vecs, t0, drain=True)
+        if staged_prev is not None:
+            _finalize(staged_prev)
+        _finalize(staged)
     return state
 
 

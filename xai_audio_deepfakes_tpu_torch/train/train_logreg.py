@@ -3,12 +3,12 @@
 
 The reference fits scikit-learn's LogisticRegression(C=1e6) on the host.
 Here the fit runs on the device: full-batch L-BFGS (`torch.optim.LBFGS`,
-strong-Wolfe line search, 10 pairs of history, as `optax.lbfgs`) on
-sklearn's objective, sum_i log(1 + exp(-z_i)) + ||w||^2 / (2C) with the
-bias unregularised. It stops as the JAX package's does: after the first
-step whose starting gradient has norm below tol * max(1, |objective|), or
-after `max_iter` steps. Accuracy and EER are the reference's reported pair;
-the params drop into `ADDvisorPipeline.logreg` and `logreg_params_save`.
+strong-Wolfe line search, 10 pairs of history, as `optax.lbfgs`; the
+driver `lbfgs_fit` also fits `band_probe.fit_softmax_probe`) on sklearn's
+objective, sum_i log(1 + exp(-z_i)) + ||w||^2 / (2C) with the bias
+unregularised, and stops as the JAX package's fit does. Accuracy and EER
+are the reference's reported pair; the params drop into
+`ADDvisorPipeline.logreg` and `logreg_params_save`.
 """
 
 from __future__ import annotations
@@ -58,6 +58,43 @@ def logreg_objective(params: dict, x: torch.Tensor, y: torch.Tensor, c: float) -
     return nll + 0.5 / c * (params["weight"] ** 2).sum()
 
 
+def lbfgs_fit(
+    objective: Callable[[], torch.Tensor], params: dict, max_iter: int, tol: float
+) -> tuple[int, int, float, float]:
+    """Minimise `objective()` over the tensors of `params` in place by
+    full-batch L-BFGS (strong-Wolfe line search, 10 pairs of history, as
+    `optax.lbfgs`). It stops as the JAX package's fits do: after the first
+    step whose starting gradient has norm below tol * max(1, |objective|),
+    or after `max_iter` steps. -> (steps, objective evaluations, the last
+    step's starting objective and gradient norm)."""
+    tensors = list(params.values())
+    # one L-BFGS iteration per step(), torch's own stopping tests off, so that
+    # the rule above decides. torch caps the line search at max_eval less the
+    # step's first evaluation; its default max_eval for one iteration (1)
+    # would leave the search no evaluation, and L-BFGS stalls
+    opt = torch.optim.LBFGS(tensors, lr=1.0, max_iter=1, max_eval=1 + 25, history_size=10,
+                            tolerance_grad=0.0, tolerance_change=0.0,
+                            line_search_fn="strong_wolfe")
+    start: list = []
+
+    def closure():
+        opt.zero_grad()
+        loss = objective()
+        loss.backward()
+        if not start:  # the first evaluation of a step is at its starting point
+            start.append((loss.detach(), torch.cat([p.grad.flatten() for p in tensors]).norm()))
+        return loss
+
+    steps = 0
+    for steps in range(1, max_iter + 1):
+        start.clear()
+        opt.step(closure)
+        value, gnorm = (float(v) for v in start[0])
+        if gnorm < tol * max(1.0, abs(value)):
+            break
+    return steps, opt.state[tensors[0]]["func_evals"], value, gnorm
+
+
 def fit_logreg(
     x: np.ndarray,
     y: np.ndarray,
@@ -76,34 +113,11 @@ def fit_logreg(
     yt = torch.as_tensor(np.asarray(y, np.float32), device=dev)[:, None]
     params = {"weight": torch.zeros((x.shape[1], 1), device=dev, requires_grad=True),
               "bias": torch.zeros((1,), device=dev, requires_grad=True)}
-    # one L-BFGS iteration per step(), torch's own stopping tests off, so that
-    # the JAX package's rule below decides. torch caps the line search at
-    # max_eval less the step's first evaluation; its default max_eval for one
-    # iteration (1) would leave the search no evaluation, and L-BFGS stalls
-    opt = torch.optim.LBFGS(list(params.values()), lr=1.0, max_iter=1, max_eval=1 + 25,
-                            history_size=10, tolerance_grad=0.0, tolerance_change=0.0,
-                            line_search_fn="strong_wolfe")
-    start: list = []
-
-    def closure():
-        opt.zero_grad()
-        loss = logreg_objective(params, xt, yt, c)
-        loss.backward()
-        if not start:  # the first evaluation of a step is at its starting point
-            gnorm = torch.cat([p.grad.flatten() for p in params.values()]).norm()
-            start.append((loss.detach(), gnorm))
-        return loss
-
-    steps = 0
-    for steps in range(1, max_iter + 1):
-        start.clear()
-        opt.step(closure)
-        value, gnorm = (float(v) for v in start[0])
-        if gnorm < tol * max(1.0, abs(value)):
-            break
+    steps, evaluations, value, gnorm = lbfgs_fit(
+        lambda: logreg_objective(params, xt, yt, c), params, max_iter, tol)
     if log_fn is not None:
-        log_fn({"lbfgs": {"steps": steps, "evaluations": opt.state[params["weight"]]["func_evals"],
-                          "objective": value, "gnorm": gnorm}})
+        log_fn({"lbfgs": {"steps": steps, "evaluations": evaluations, "objective": value,
+                          "gnorm": gnorm}})
     return {k: v.detach() for k, v in params.items()}
 
 
