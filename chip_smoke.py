@@ -39,23 +39,28 @@ PyTorch built for CUDA. It
     training step's shapes (2 clips), in f32 and, for A, D and E, in bf16 as
     the attribution harness and the training step take it
     (`check_backwards_bf16`);
- 5. runs `ADDvisorPipeline.explain(decoder="unet")` at the full width of the
+ 5. runs `torch.library.opcheck` on each registered kernel op (`addv::attention`,
+    `addv::stft`, `addv::istft`, `addv::ln_gelu`, `addv::ln_gelu_`,
+    `addv::conv_ln_gelu`) with CUDA inputs at one driven shape (batch 2), and
+    times each kernel's CUDA implementation called directly (`direct_ms`,
+    the ctypes launch without the dispatcher) beside the op's `ms`;
+ 6. runs `ADDvisorPipeline.explain(decoder="unet")` at the full width of the
     XLS-R-2B truncation (bf16 embedder, default UNet) on 8 seeded clips with
     random weights from a seeded torch.Generator, checks shapes, finiteness
     and probabilities in (0, 1), counts the kernel launches of one explain
     (A 9, B 1, C 2, D 7) and prints clips/s; then the same with
     `fused_conv=True` (A 9, B 1, C 2, D 1, E 6), whose probabilities must
     agree with the first run's within 0.05;
- 6. takes LMAC training steps of the UNet decoder at full width and depth
+ 7. takes LMAC training steps of the UNet decoder at full width and depth
     (bf16 embedder with both fused frontend kernels, f32 UNet, 2 clips;
     cuDNN's deterministic algorithms, as `make_train_step` takes them):
     launches per step A 27, B 1, C 2, D 3, E 18, finite losses, loss weights
     renormalised to sum 3, decoder changed, embedder bit-identical; prints
     step ms, its forward / backward / optimiser split and peak memory;
- 7. runs a tiny f32 training step on the card and on the CPU with the same
+ 8. runs a tiny f32 training step on the card and on the CPU with the same
     weights and compares them (losses 1e-4, decoder gradients 1e-3 of their
     scale, loss weights 1e-5);
- 8. runs the JAX package's serving configurations at full width, B=8: the
+ 9. runs the JAX package's serving configurations at full width, B=8: the
     entry point's (`EmbedderConfig(dtype="bfloat16")`, unfused frontend
     LayerNorm and GELU), `bench.py`'s default (bf16, int8, tanh GELU, bf16
     UNet) and the same after `calibrate_quant` on 16 seeded clips
@@ -68,7 +73,21 @@ PyTorch built for CUDA. It
     each configuration's own distance from the f32 port (`run_tiny_configs`);
     and saliency through `run_attribution_metrics` on `bench.py`'s int8
     embedder at batch 2 (A 36, a finite, non-zero map);
- 9. runs `explain(decoder="features")` at full width, B=8, with both
+10. serves the CLI's default configuration (the entry point's) through
+    `start_api_server(pipe, port=0, batch_size=8)`: 16 client threads POST 64
+    seeded WAVs, every response 200, fewer batches than requests, launches
+    per batch A 9, B 1, C 2, the first 8 responses against a direct
+    explain of the same clips (probabilities 1e-3, mask statistics 1e-4,
+    the relevant WAV within 2 PCM steps), /healthz, a 400 and a 413;
+    prints requests/s, p50 / p99 latency, rows per batch and the worker's
+    host share of a batch; then `save_exported` at batch 8 and the
+    artifact run by a second process of this script (`--artifact-child`)
+    with the port's `models` and `pipeline` blocked: outputs within 1e-6
+    (probabilities 1e-5) of the eager explain, bit-equality printed, the
+    same launches, an empty state dict, `explain.pt2` under 5% of
+    `params.npz`, its ms against the eager explain's, and `with_params`
+    with a second UNet's weights against the eager pipeline holding them;
+11. runs `explain(decoder="features")` at full width, B=8, with both
     frontends (A 18, B 1, C 2, D 14; or D 2, E 12), its stage split and
     peak memory; `run_explanation_metrics` over 3 batches of 8 with each
     decoder, its device fold against the float64 summary of the
@@ -78,12 +97,12 @@ PyTorch built for CUDA. It
     forward, finite non-zero maps), with ms per method; the harness's
     saliency map twice, bit for bit equal (deterministic cuDNN), and the
     drift of two saliency maps with cuDNN's default algorithms (printed);
-10. exports a seeded encoder as a HF checkpoint (weight-normed positional
+12. exports a seeded encoder as a HF checkpoint (weight-normed positional
     conv, `wav2vec2.` prefix), writes it as a hand-made `model.safetensors`
     (1.7 GB f32 at full width) and, at tiny width, as `pytorch_model.bin`,
     imports it through `params_from_hf_dir` and `convert.load_encoder`, and
     requires the explain to equal the source weights' bit for bit;
-11. takes two identical no-remat training steps through `make_train_step`
+13. takes two identical no-remat training steps through `make_train_step`
     and requires bit-equal losses and decoder gradients, then three
     training steps with remat off, "full" and "dots" (step ms, peak memory,
     launches with the recomputed kernel A, the first step's decoder
@@ -92,7 +111,7 @@ PyTorch built for CUDA. It
     feature-decoder explain (one attention block) and a tiny f32
     `input_x_gradient` on the card against the CPU (mask 1e-5, waveforms
     2e-4, probabilities 1e-4; the map 1e-3 of its largest magnitude);
-12. drives the detector and its data at full width: `datagen` as the CLI
+14. drives the detector and its data at full width: `datagen` as the CLI
     runs it (the entry point's configuration; 8 seeded clips and noise
     twins written as 16-bit wavs, the twins at 22.05 kHz, read back by
     `extract_wavs` and `load_audio`, which decoder served printed;
@@ -108,20 +127,20 @@ PyTorch built for CUDA. It
     scipy's float64 L-BFGS-B (cosine > 0.999, objective 1e-4 relative); and
     tiny `band_spliced_waveforms` (2e-4) and band-swap features (5e-4) on
     the card against the CPU;
-13. takes one training step at 2 clips with each switch ported last (the
+15. takes one training step at 2 clips with each switch ported last (the
     bf16 UNet; `target_quant="int8"`) in the kernel D + E configuration
     (A 27, B 1, C 2, D 3, E 18; step ms and peak memory beside the f32
     step's), and a tiny step of each on the card against the CPU (the
     int8 target at the training bars, the bf16 UNet at multiples of its
     own bf16-vs-f32 deviation);
-14. drives the vocoder at full width over 8 clips (default `HiFiGANConfig`,
+16. drives the vocoder at full width over 8 clips (default `HiFiGANConfig`,
     f32, 512 initial channels): `vocode` (B 1, [8, 80128]), its mel /
     HiFi-GAN split and peak memory, `explain_vocoded` (A 9, B 2, C 2) with
     the explain and the HiFi-GAN timed apart, `generate_vocoded_dataset`
     over datagen's 8 wavs (64 band-spliced wavs, a file B 3, C 1, leakage
     warnings counted), and a tiny `explain_vocoded` on the card against
     the CPU;
-15. runs the closed loop reduced (`run_closed_loop(anyband=True)`, 32
+17. runs the closed loop reduced (`run_closed_loop(anyband=True)`, 32
     training and 16 evaluation clips, 3 epochs at batch 16) in the
     configuration of `docs/closed_loop_anyband`'s command line (bf16,
     `scan_layers`, remat "dots", lr 3e-4, noise rms 1.0): the detector's
@@ -129,10 +148,19 @@ PyTorch built for CUDA. It
     flip rates before and after, launches per stage; every epoch
     checkpointed asynchronously (each checkpoint its epoch's state, the
     last reloaded bit for bit) and `artifact_fn` once per epoch;
-16. last of the phases, a tiny f32 explain on the card 20 times against
+18. calls `cli.main([...])` in-process for each of the 13 subcommands at
+    full width with the default flags over the datagen phase's wavs
+    (`explain`, also with `--synthesize --chunk-long`; `serve` and
+    `serve-api --exported` on threads, answering over HTTP; `export`;
+    `profile --trace-dir`, whose trace must hold the `addv::` ops and the
+    kernels; `eval`; `attrib --save-artifacts`; `embed`; `datagen`;
+    `train-detector` on datagen's features; `vocode-datagen`; `train` and
+    `train --resume`; `closed-loop --n-train 32 --n-eval 16 --epochs 1`),
+    checks each one's JSON line and files and prints its wall;
+19. last of the phases, a tiny f32 explain on the card 20 times against
     one on the CPU with the same weights (mask 1e-5, waveforms 2e-4,
     probabilities 1e-4), the largest deviations printed;
-17. prints the `kernels` JSON line and, last, the device line. A kernel's
+20. prints the `kernels` JSON line and, last, the device line. A kernel's
     `launches` are those of every driven path together, each path counted
     from zero and named in `launches_by_path`; its `body` names the design
     that ran.
@@ -295,7 +323,11 @@ def attention_inputs(torch, g, b: int, t: int, nh: int, hd: int, hdp: int, q_sca
 
 
 def check_attention(torch, cfg, rows: list) -> None:
-    from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain
+    from xai_audio_deepfakes_tpu_torch.ops.attention import (
+        _attention_cuda,
+        attention,
+        attention_plain,
+    )
 
     e = cfg.embedder
     t, nh, hd, hdp = cfg.audio.num_frames(cfg.stft), e.num_heads, 120, 128
@@ -322,6 +354,7 @@ def check_attention(torch, cfg, rows: list) -> None:
     qh, kh, vh = heads(q).contiguous(), heads(k).contiguous(), heads(v).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = time_ms(lambda: attention(q, k, v, nh))
+    direct = time_ms(lambda: _attention_cuda(q, k, v, nh))
     plain = time_ms(lambda: attention_plain(q, k, v, nh))
     lib = time_ms(lambda: sdpa(qh, kh, vh, scale=1.0))
     nbytes = 4 * b * t * nh * hdp * 2
@@ -331,7 +364,7 @@ def check_attention(torch, cfg, rows: list) -> None:
                      source="xai_audio_deepfakes_tpu_torch/csrc/attention.cu",
                      replaces="xai_audio_deepfakes_tpu/ops/attention.py:100",
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain,
-                     bound_ms=bnd, bound_by=by, library_ms=lib,
+                     bound_ms=bnd, bound_by=by, library_ms=lib, direct_ms=direct,
                      f32_max_abs_err=errs[torch.float32], shape=[b, t, nh * hdp],
                      kernel_device_ms=kernel_device_ms(lambda: attention(q, k, v, nh),
                                                        "attention_bf16_kernel"),
@@ -343,7 +376,13 @@ def check_attention(torch, cfg, rows: list) -> None:
 
 def check_stft(torch, cfg, rows: list) -> None:
     from xai_audio_deepfakes_tpu_torch.data.vocoded import hann_splice_config
-    from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft, stft
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import (
+        _cfg_args,
+        _istft_cuda,
+        _stft_cuda,
+        istft,
+        stft,
+    )
     from xai_audio_deepfakes_tpu_torch.ops.stft import (
         device_constant,
         istft_plain,
@@ -399,6 +438,7 @@ def check_stft(torch, cfg, rows: list) -> None:
                      max_abs_err=err, ms=time_ms(lambda: stft(x, sc)),
                      plain_ms=time_ms(lambda: stft_plain(x, sc)), bound_ms=bnd, bound_by=by,
                      library_ms=lib, shape=[BATCH, n], dtype="float32",
+                     direct_ms=time_ms(lambda: _stft_cuda(x, *_cfg_args(sc))),
                      kernel_device_ms=kernel_device_ms(lambda: stft(x, sc), "stft_fft_kernel"),
                      library_device_ms=kernel_device_ms(stft_lib), mel_shape=mel,
                      body="radix-8 Stockham FFT of the even/odd-packed frame in shared memory, "
@@ -417,6 +457,7 @@ def check_stft(torch, cfg, rows: list) -> None:
                      max_abs_err=err_c, ms=time_ms(lambda: istft(re_m, im_m, sc, n)),
                      plain_ms=time_ms(lambda: istft_plain(re_m, im_m, sc, n)),
                      bound_ms=bnd, bound_by=by, library_ms=lib,
+                     direct_ms=time_ms(lambda: _istft_cuda(re_m, im_m, *_cfg_args(sc), n)),
                      shape=[BATCH, sc.num_bins, t], dtype="float32",
                      kernel_device_ms=kernel_device_ms(lambda: istft(re_m, im_m, sc, n),
                                                        "istft_fft_kernel"),
@@ -491,7 +532,11 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
     import torch.nn.functional as F
 
     from xai_audio_deepfakes_tpu_torch.ops import _cuda
-    from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu_, ln_gelu_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import (
+        _ln_gelu_inplace_cuda,
+        ln_gelu_,
+        ln_gelu_plain,
+    )
 
     e = cfg.embedder
     c, eps = e.conv_dim[0], e.layer_norm_eps
@@ -524,12 +569,13 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
             del x32, x
     # timed at the UNet explain's batch
     b = EMBED_BATCHES[-1]
-    plain = lib = lib_dev = 0.0
+    plain = lib = lib_dev = direct = 0.0
     by_layer, dev_by_layer, gbs_by_layer, lib_dev_by_layer = [], [], [], []
     for length in frontend_lengths(cfg):
         x = (torch.randn(b, c, length, device="cuda", generator=g) * 2.0 + 0.5).to(torch.bfloat16)
         work = x.clone()
         by_layer.append(time_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu), iters=5))
+        direct += time_ms(lambda: _ln_gelu_inplace_cuda(work, scale, bias, eps, e.gelu), iters=5)
         dev_by_layer.append(kernel_device_ms(lambda: ln_gelu_(work, scale, bias, eps, e.gelu),
                                              "ln_gelu", 5))
         gbs_by_layer.append(2 * 2 * b * c * length / (dev_by_layer[-1] * 1e-3) / 1e9)
@@ -556,7 +602,7 @@ def check_ln_gelu(torch, cfg, rows: list) -> None:
                      replaces="xai_audio_deepfakes_tpu/ops/pallas_ln_gelu.py:113",
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
-                     shape=[b, c, frontend_lengths(cfg)], dtype="bfloat16",
+                     shape=[b, c, frontend_lengths(cfg)], dtype="bfloat16", direct_ms=direct,
                      kernel_device_ms=dev, library_device_ms=lib_dev,
                      ms_by_layer=by_layer, device_ms_by_layer=dev_by_layer,
                      library_device_ms_by_layer=lib_dev_by_layer,
@@ -588,13 +634,17 @@ def conv_inputs(torch, g, dtype, k: int, length: int, batch: int, c: int):
 def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
     import torch.nn.functional as F
 
-    from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import (
+        _conv_ln_gelu_cuda,
+        conv_ln_gelu,
+        conv_ln_gelu_plain,
+    )
 
     e = cfg.embedder
     c, eps = e.conv_dim[0], e.layer_norm_eps
     g = torch.Generator(device="cuda").manual_seed(4)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    ms = plain = lib = ops = nbytes = dev = lib_dev = 0.0
+    ms = plain = lib = ops = nbytes = dev = lib_dev = direct = 0.0
     by_layer, dev_by_layer, l2_weight_gb = [], [], []
     worst_share = 0.0
     lengths = frontend_lengths(cfg)
@@ -635,6 +685,8 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
         by_layer.append(time_ms(lambda: conv_ln_gelu(x, w, cb, scale, bias, eps, e.gelu),
                                 iters=5, warmup=1))
         ms += by_layer[-1]
+        direct += time_ms(lambda: _conv_ln_gelu_cuda(x, w, cb, scale, bias, eps, e.gelu),
+                          iters=5, warmup=1)
         # every kernel of the call, the wrapper's weight-image copy with E, as
         # the library's device time counts every kernel of its call
         dev_by_layer.append(kernel_device_ms(
@@ -664,6 +716,7 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
                      max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib, f32_max_abs_err=errs[torch.float32],
                      shape=[b, c, lengths[:-1]], dtype="bfloat16", gflop=ops / 1e9, ms_by_layer=by_layer,
+                     direct_ms=direct,
                      kernel_device_ms=dev, library_device_ms=lib_dev,
                      device_ms_by_layer=dev_by_layer,
                      body="bf16: wgmma m64n256k16 with both operands in shared memory, 64 "
@@ -2489,6 +2542,468 @@ def run_tiny_vocoded(torch) -> None:
     check_close("tiny explain_vocoded vocoded relevant clips", voc_g.cpu(), voc_c, 1e-4)
 
 
+# ---------------------------------------------------------------------------
+# Serving, the exported artifact and the CLI
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 16  # client threads of the serve phase
+SERVE_REQUESTS = 64  # seeded WAVs they POST
+
+
+def run_opcheck(torch, cfg) -> None:
+    """`torch.library.opcheck` of each registered kernel op on CUDA inputs at
+    one driven shape (batch 2, the training step's)."""
+    from torch.library import opcheck
+
+    from xai_audio_deepfakes_tpu_torch.ops import attention, cuda_conv, cuda_ln_gelu, cuda_stft
+
+    e, sc = cfg.embedder, cfg.stft
+    n, t, eps = cfg.audio.num_samples, cfg.audio.num_frames(sc), e.layer_norm_eps
+    g = torch.Generator(device="cuda").manual_seed(11)
+    hd = e.hidden_size // e.num_heads
+    q, k, v = (x.to(torch.bfloat16) for x in attention_inputs(torch, g, 2, t, e.num_heads, hd,
+                                                                128, hd**-0.5))
+    wav = torch.randn(2, n, device="cuda", generator=g) * 0.1
+    re, im = cuda_stft.stft(wav, sc)
+    lengths = frontend_lengths(cfg)
+    x, w, cb, scale, bias = conv_inputs(torch, g, torch.bfloat16, e.conv_kernel[1], lengths[0],
+                                        2, e.conv_dim[0])
+    cases = {
+        "addv::attention": (attention.attention_op, (q, k, v, e.num_heads)),
+        "addv::stft": (cuda_stft.stft_op, (wav, *cuda_stft._cfg_args(sc))),
+        "addv::istft": (cuda_stft.istft_op, (re, im, *cuda_stft._cfg_args(sc), n)),
+        "addv::ln_gelu": (cuda_ln_gelu.ln_gelu_op, (x, scale, bias, eps, e.gelu)),
+        "addv::ln_gelu_": (cuda_ln_gelu.ln_gelu_inplace_op, (x.clone(), scale, bias, eps, e.gelu)),
+        "addv::conv_ln_gelu": (cuda_conv.conv_ln_gelu_op, (x, w, cb, scale, bias, eps, e.gelu)),
+    }
+    for name, (op, args) in cases.items():
+        t0 = time.perf_counter()
+        res = opcheck(op, args)
+        print(f"opcheck {name} at {[tuple(a.shape) for a in args if hasattr(a, 'shape')]}: "
+              f"{res} ({time.perf_counter() - t0:.1f} s)")
+        if any(v != "SUCCESS" for v in res.values()):
+            fail(f"opcheck {name}: {res}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None,
+          headers: dict | None = None, timeout: float = 300.0) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _wait_healthy(port: int, seconds: float) -> dict:
+    deadline = time.monotonic() + seconds
+    while True:
+        try:
+            code, body = _http(port, "GET", "/healthz", timeout=10)
+            if code == 200:
+                return json.loads(body)
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            fail(f"no /healthz on port {port} within {seconds} s")
+        time.sleep(0.5)
+
+
+def run_serve(torch, pipe) -> dict:
+    """`start_api_server(pipe, port=0, batch_size=8)` in-process; 16 client
+    threads POST 64 seeded WAVs; every response 200, the batches fewer than
+    the requests, launches per batch A 9, B 1, C 2; the first 8 responses
+    against a direct `pipe.explain` of the same decoded clips at batch 8
+    (probabilities 1e-3, mask statistics 1e-4, the relevant WAV within 2 PCM
+    steps); /healthz, a 400 and a 413. Prints requests/s, p50 / p99 latency,
+    rows per batch and the worker's host share of each batch (its time
+    outside the explain, which ends in a synchronise)."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.data.io import (
+        decode_wav_bytes,
+        load_audio_bytes,
+        wav_to_bytes,
+    )
+    from xai_audio_deepfakes_tpu_torch.data.synthetic import speechlike_clips
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.serve.api import MAX_REQUEST_BYTES, start_api_server
+
+    n = pipe.cfg.audio.num_samples
+    bodies = [wav_to_bytes(c) for c in speechlike_clips(np.random.default_rng(30),
+                                                         SERVE_REQUESTS, n)]
+    t0 = time.perf_counter()
+    server, service = start_api_server(pipe, port=0, batch_size=BATCH)
+    print(f"serve: service warmed up and listening in {time.perf_counter() - t0:.2f} s")
+    port = server.server_address[1]
+    explain_s, dispatch_s = [], []
+    explain, dispatch = service._explain, service._dispatch
+
+    def timed_explain(wav):
+        t = time.perf_counter()
+        out = explain(wav)
+        torch.cuda.synchronize()
+        explain_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_dispatch(batch):
+        t = time.perf_counter()
+        dispatch(batch)
+        dispatch_s.append(time.perf_counter() - t)
+
+    service._explain, service._dispatch = timed_explain, timed_dispatch
+    try:
+        before = dict(service.stats)
+        latency = [0.0] * SERVE_REQUESTS
+        results: list = [None] * SERVE_REQUESTS
+
+        def client(i: int) -> None:
+            for j in range(i, SERVE_REQUESTS, SERVE_CLIENTS):
+                t = time.perf_counter()
+                results[j] = _http(port, "POST", "/explain", bodies[j])
+                latency[j] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        if any(th.is_alive() for th in threads):
+            fail("serve: a client did not finish")
+        stats = {k: service.stats[k] - before[k] for k in before}
+        codes = [r[0] for r in results]
+        if codes != [200] * SERVE_REQUESTS:
+            fail(f"serve: status codes {codes}")
+        if stats["requests"] != SERVE_REQUESTS or not stats["batches"] < stats["requests"]:
+            fail(f"serve: no coalescing, stats {stats}")
+        nb = stats["batches"]
+        if launches != launches_of(a=9 * nb, b=nb, c=2 * nb):
+            fail(f"serve: launches {launches} over {nb} batches")
+
+        # the first 8 responses against the direct explain of the decoded clips
+        wavs = np.stack([load_audio_bytes(b)[0] for b in bodies[:BATCH]])
+        ref = pipe.explain(wavs)
+        host = {k: v.float().cpu().numpy() for k, v in ref._asdict().items()}
+        errs = {"probs": 0.0, "mask_stats": 0.0, "wav_steps": 0.0}
+        for j in range(BATCH):
+            got = json.loads(results[j][1])
+            mask, mag = host["mask"][j], host["magnitude"][j]
+            want_p = (host["probs_clean"][j, 0], host["probs_relevant"][j, 0],
+                      host["probs_irrelevant"][j, 0])
+            got_p = (got["pred_original"], got["pred_relevant"], got["pred_irrelevant"])
+            errs["probs"] = max(errs["probs"], *(abs(a - b) for a, b in zip(got_p, want_p)))
+            kept = float(((mask * mag) ** 2).sum() / max(float((mag**2).sum()), 1e-12))
+            errs["mask_stats"] = max(errs["mask_stats"], abs(got["mask_mean"] - float(mask.mean())),
+                                     abs(got["mask_energy_kept"] - kept))
+            rel = decode_wav_bytes(base64.b64decode(got["relevant_wav_b64"]))[0]
+            want_rel = decode_wav_bytes(wav_to_bytes(host["relevant_wav"][j]))[0]
+            errs["wav_steps"] = max(errs["wav_steps"],
+                                    float(np.abs(rel - want_rel).max()) * 32768.0)
+        print(f"serve vs direct explain of the same 8 clips: {json.dumps(errs)}")
+        if errs["probs"] > 1e-3 or errs["mask_stats"] > 1e-4 or errs["wav_steps"] > 2.0:
+            fail(f"serve: responses disagree with the direct explain: {errs}")
+
+        health = json.loads(_http(port, "GET", "/healthz")[1])
+        if health.get("platform") != "gpu" or health.get("batch_size") != BATCH:
+            fail(f"serve: /healthz {health}")
+        bad = _http(port, "POST", "/explain", b"not a wav")[0]
+        too_big = _http(port, "POST", "/explain", b"",
+                        headers={"Content-Length": str(MAX_REQUEST_BYTES + 1)})[0]
+        if (bad, too_big) != (400, 413):
+            fail(f"serve: bad payload {bad}, oversized {too_big} (want 400, 413)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+    lat = np.sort(np.asarray(latency)) * 1e3
+    disp, expl = np.asarray(dispatch_s[-nb:]), np.asarray(explain_s[-nb:])
+    summary = {
+        "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, "wall_s": wall,
+        "requests_per_s": SERVE_REQUESTS / wall,
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "batches": nb, "rows_per_batch": SERVE_REQUESTS / nb,
+        "dispatch_ms_mean": float(disp.mean() * 1e3), "explain_ms_mean": float(expl.mean() * 1e3),
+        "host_share_per_batch": float(((disp - expl) / disp).mean()),
+        "launches_per_batch": {k: v / nb for k, v in launches.items()},
+        "healthz": health, "status_bad_payload": bad, "status_oversized": too_big,
+    }
+    print("serve: " + json.dumps(summary))
+    return {"serve_64_requests": launches}
+
+
+def artifact_child(art_dir: str, ref_dir: str) -> int:
+    """The export phase's second process: load the artifact with the port's
+    model code blocked, run it on the card against the eager explain's
+    outputs (and with a second UNet's weights swapped in), print one JSON
+    line."""
+    for name in ("xai_audio_deepfakes_tpu_torch.models", "xai_audio_deepfakes_tpu_torch.pipeline"):
+        sys.modules[name] = None  # importing either now raises
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+    import torch
+
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.serve.export import OUTPUT_FIELDS, load_exported
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    art = load_exported(art_dir)
+    load_s = time.perf_counter() - t0
+    ref = np.load(Path(ref_dir) / "export_ref.npz")
+    wav = torch.from_numpy(ref["wav"]).cuda()
+    art(wav)  # warm-up: the kernel library is loaded here
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    out = art(wav)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+
+    def compare(got, prefix: str) -> dict:
+        res = {}
+        for f in OUTPUT_FIELDS:
+            a, b = getattr(got, f).float().cpu().numpy(), ref[f"{prefix}_{f}"]
+            res[f] = {"max_abs_err": float(np.abs(a - b).max()), "bit_equal": bool((a == b).all())}
+        return res
+
+    errors = compare(out, "ref1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        art(wav)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    with np.load(Path(ref_dir) / "unet2.npz") as z:
+        unet2 = {k: torch.from_numpy(z[k]) for k in z.files}
+    art2 = art.with_params({**art.params, **unet2})
+    errors2 = compare(art2(wav), "ref2")
+    imported = sorted(m for m in sys.modules if sys.modules[m] is not None and m.startswith(
+        ("xai_audio_deepfakes_tpu_torch.models", "xai_audio_deepfakes_tpu_torch.pipeline")))
+    print(json.dumps({"load_s": load_s, "launches": launches, "errors": errors,
+                      "errors_with_params": errors2, "ms": ms,
+                      "state_dict_len": len(art._program.state_dict),
+                      "constants_len": len(art._program.constants),
+                      "imported_model_modules": imported}))
+    return 0
+
+
+def run_export(torch, pipe, root: Path) -> dict:
+    """`save_exported` at batch 8 on the card, then a second process loads
+    and runs the artifact (`artifact_child`): mask and waveforms within 1e-6
+    of the eager explain, probabilities within 1e-5 (bit-equality printed),
+    launches A 9, B 1, C 2, no model module imported, an empty state dict,
+    `explain.pt2` under 5% of `params.npz`, ms against the eager explain's,
+    and `with_params` with a second UNet's weights against the eager
+    pipeline holding them. Leaves that second UNet in `pipe`."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.models.unet import init_unet_
+    from xai_audio_deepfakes_tpu_torch.serve.export import (
+        OUTPUT_FIELDS,
+        explain_params,
+        flatten_params,
+        save_exported,
+    )
+
+    shutil.rmtree(root, ignore_errors=True)
+    art = root / "artifact"
+    n = pipe.cfg.audio.num_samples
+    wav = (np.random.default_rng(40).standard_normal((BATCH, n)) * 0.1).astype(np.float32)
+    wav_t = torch.from_numpy(wav).cuda()
+    t0 = time.perf_counter()
+    save_exported(str(art), pipe, BATCH)
+    export_s = time.perf_counter() - t0
+    sizes = {f.name: f.stat().st_size for f in sorted(art.iterdir())}
+    ratio = sizes["explain.pt2"] / sizes["params.npz"]
+    print(f"export: save_exported at batch {BATCH} in {export_s:.1f} s, files {sizes}, "
+          f"graph / weights {ratio:.4f}")
+    if ratio >= 0.05:
+        fail(f"export: explain.pt2 is {ratio:.3f} of params.npz (at most 0.05)")
+    pipe.explain(wav_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pipe.explain(wav_t)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 5 * 1e3
+    refs = {"wav": wav}
+    for f, v in zip(OUTPUT_FIELDS, pipe.explain(wav_t)):
+        refs[f"ref1_{f}"] = v.float().cpu().numpy()
+    init_unet_(pipe.unet, torch.Generator(device="cuda").manual_seed(21))
+    for f, v in zip(OUTPUT_FIELDS, pipe.explain(wav_t)):
+        refs[f"ref2_{f}"] = v.float().cpu().numpy()
+    np.savez(root / "export_ref.npz", **refs)
+    np.savez(root / "unet2.npz", **{k: v.detach().cpu().numpy() for k, v in
+                                    flatten_params(explain_params(pipe)).items()
+                                    if k.startswith("unet/")})
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--artifact-child",
+                          str(art), str(root)], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:])
+        fail(f"export: the artifact's process exited {res.returncode}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"export: artifact process ({child_s:.1f} s): " + json.dumps(got))
+    want = launches_of(a=pipe.cfg.embedder.num_layers, b=1, c=2)
+    if got["launches"] != want:
+        fail(f"export: the artifact launched {got['launches']} (want {want})")
+    if got["imported_model_modules"] or got["state_dict_len"]:
+        fail(f"export: model modules {got['imported_model_modules']}, "
+             f"state dict of {got['state_dict_len']}")
+    for key in ("errors", "errors_with_params"):
+        for f, e in got[key].items():
+            bar = 1e-5 if f.startswith("probs") else 1e-6
+            if e["max_abs_err"] > bar:
+                fail(f"export: {key} {f} {e['max_abs_err']:.3e} (bar {bar})")
+    equal = all(e["bit_equal"] for e in got["errors"].values())
+    print(f"export: artifact {got['ms']:.2f} ms against eager {eager_ms:.2f} ms at batch "
+          f"{BATCH} ({got['ms'] / eager_ms - 1:+.2%}); bit-equal to the eager explain: {equal}")
+    return {"artifact_explain": got["launches"]}
+
+
+def run_cli(torch, root: Path, wav_root: Path) -> dict:
+    """`cli.main([...])` in-process for each of the 13 subcommands at full
+    width with the default flags (bf16 embedder, f32 UNet) over the datagen
+    phase's wavs, each one's JSON line and files checked and its wall
+    printed; `serve` and `serve-api --exported` run on threads and answer
+    over HTTP; `profile`'s trace must hold the `addv::` ops and kernel A's
+    body."""
+    import contextlib
+    import io
+    import threading
+
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.cli.__main__ import main as cli
+    from xai_audio_deepfakes_tpu_torch.data.datasets import extract_wavs
+
+    shutil.rmtree(root, ignore_errors=True)
+    meta, real, voc = (str(wav_root / p) for p in ("metadata.csv", "real", "vocoded"))
+    names = extract_wavs(meta)
+    walls: dict = {}
+
+    def run(name: str, argv: list) -> dict:
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        if rc not in (None, 0):
+            fail(f"cli {name}: exit {rc}; {err.getvalue()[-2000:]}")
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        note = err.getvalue().strip().splitlines()
+        print(f"  cli {' '.join(argv[:1])}: {walls[name]:.2f} s, {json.dumps(line)[:300]}"
+              + (f"; stderr: {note[-1][:200]}" if note else ""))
+        torch.cuda.empty_cache()
+        return line
+
+    def need(cond: bool, what: str) -> None:
+        if not cond:
+            fail(f"cli: {what}")
+
+    d = {k: str(root / k) for k in ("explain", "explain_voc", "art", "trace", "attrib", "embed",
+                                   "datagen", "det", "voc", "train", "cl")}
+    res = run("explain", ["explain", "--wav", f"{real}/{names[0]}", f"{real}/{names[1]}",
+                          "--out", d["explain"]])
+    need(res["explained"] == 2 and Path(res["gallery"]).is_file()
+         and (root / "explain" / "clip_0_explanation.wav").is_file(), f"explain {res}")
+    res = run("explain --synthesize", ["explain", "--synthesize", "--chunk-long", "--batch-size",
+                                       "1", "--wav", f"{real}/{names[0]}", "--out",
+                                       d["explain_voc"]])
+    need((root / "explain_voc" / "clip_0_explanation_vocoded.wav").is_file(), "explain_vocoded")
+
+    port = _free_port()
+    threading.Thread(target=cli, args=(["serve", "--artifacts", d["explain"], "--port",
+                                        str(port)],), daemon=True).start()
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            code, page = _http(port, "GET", "/index.html", timeout=10)
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                fail("cli serve: no gallery")
+            time.sleep(0.2)
+    need(code == 200 and page.count(b"audio controls") >= 2, f"serve index.html {code}")
+    print(f"  cli serve: index.html {len(page)} bytes, "
+          f"{page.count(b'audio controls')} audio players")
+
+    res = run("export", ["export", "--batch-size", str(BATCH), "--out", d["art"]])
+    need(res["device"] == "cuda" and res["files"]["explain.pt2"] < res["files"]["params.npz"],
+         f"export {res}")
+    port = _free_port()
+    t0 = time.perf_counter()
+    threading.Thread(target=cli, args=(["serve-api", "--exported", d["art"], "--port",
+                                        str(port)],), daemon=True).start()
+    health = _wait_healthy(port, 300)
+    code, body = _http(port, "POST", "/explain?audio=0",
+                       (Path(real) / names[0]).read_bytes())
+    walls["serve-api --exported"] = time.perf_counter() - t0
+    got = json.loads(body)
+    need(code == 200 and health["batch_size"] == BATCH and 0 < got["pred_original"] < 1,
+         f"serve-api --exported {code} {got}")
+    print(f"  cli serve-api --exported: {walls['serve-api --exported']:.2f} s to a served "
+          f"request, {json.dumps(got)}")
+
+    res = run("profile", ["profile", "--batch-size", str(BATCH), "--iters", "3",
+                          "--trace-dir", d["trace"]])
+    trace = (root / "trace" / "trace.json").read_text()
+    need(all(s in trace for s in ("addv::attention", "addv::stft", "addv::istft",
+                                  "attention_bf16_kernel", "stft_fft_kernel",
+                                  "istft_fft_kernel")), "profile trace without the addv ops")
+    res = run("eval", ["eval", "--metadata", meta, "--root", real, "--limit", str(BATCH)])
+    need(all(np.isfinite(v) for v in res.values() if isinstance(v, float)), f"eval {res}")
+    res = run("attrib", ["attrib", "--metadata", meta, "--root", real, "--limit", "2",
+                         "--batch-size", "2", "--save-artifacts", "--out", d["attrib"]])
+    need(res["num_clips"] == 2 and res["artifacts"] == 2, f"attrib {res}")
+    res = run("embed", ["embed", "--metadata", meta, "--root", real, "--limit", str(BATCH),
+                        "--out", d["embed"]])
+    need(res == {"embedded": BATCH, "dim": 1920}, f"embed {res}")
+    res = run("datagen", ["datagen", "--metadata", meta, "--root", real, "--vocoded-root", voc,
+                          "--limit", "4", "--out", d["datagen"]])
+    need(res == {"X_shape": [36, 1920], "labels": 32}, f"datagen {res}")
+    res = run("train-detector", ["train-detector", "--features",
+                                 f"{d['datagen']}/band_swap_features.npz", "--out", d["det"]])
+    need(0 <= res["eer"] <= 1 and (root / "det" / "logreg_vocoded_anyband.npz").is_file(),
+         f"train-detector {res}")
+    res = run("vocode-datagen", ["vocode-datagen", "--metadata", meta, "--root", real,
+                                 "--limit", "1", "--out", d["voc"]])
+    need(res == {"written": 8}, f"vocode-datagen {res}")
+    train = ["train", "--metadata", meta, "--root", real, "--limit", "4", "--batch-size", "2",
+             "--epochs", "1", "--out", d["train"]]
+    res = run("train", train)
+    need(res == {"trained_steps": 2}, f"train {res}")
+    res = run("train --resume", train + ["--resume"])
+    need(res == {"trained_steps": 4} and any((root / "train" / "ckpts").iterdir()),
+         f"train --resume {res}")
+    res = run("closed-loop", ["closed-loop", "--n-train", "32", "--n-eval", "16", "--epochs", "1",
+                              "--out", d["cl"]])
+    need((root / "cl" / "closed_loop.json").is_file() and "detector" in res
+         and len(res["train_log"]) == 1, "closed-loop")
+    print("cli walls s: " + json.dumps({k: round(v, 2) for k, v in walls.items()}))
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -2526,6 +3041,7 @@ def main() -> int:
         check_conv_ln_gelu(torch, cfg, rows)
     check_backwards(torch, cfg)
     check_backwards_bf16(torch, cfg)
+    run_opcheck(torch, cfg)
     torch.cuda.empty_cache()
 
     n_layers, n_conv = cfg.embedder.num_layers, len(cfg.embedder.conv_dim)
@@ -2584,12 +3100,20 @@ def main() -> int:
         paths[path] = run_explain(torch, pcfg, serving, reps=2, name=path, split=True)[0]
     paths.update(run_int8_attribution(torch, bench))
     torch.cuda.empty_cache()
+    # the CLI's default configuration (the entry point's) behind the HTTP
+    # service, then exported and run from the artifact in a second process
+    build = Path(__file__).resolve().parent / "build"
+    pipe = build_pipeline(torch, entry)
+    paths.update(run_serve(torch, pipe))
+    paths.update(run_export(torch, pipe, build / "export_smoke"))
+    del pipe
+    torch.cuda.empty_cache()
     frontend_bias_adds(torch, cfg)
     run_tiny_configs(torch)
 
     # the detector and its data: datagen and embed (the CLI's default
     # configuration), the anyband corpus and the detector fit, the solver
-    wav_root = Path(__file__).resolve().parent / "build" / "detector_wavs"
+    wav_root = build / "detector_wavs"
     shutil.rmtree(wav_root, ignore_errors=True)
     paths.update(run_datagen_and_embed(torch, wav_root))
     paths.update(run_detector_corpus(torch, wav_root))
@@ -2599,6 +3123,9 @@ def main() -> int:
     paths.update(run_vocoder(torch, wav_root))
     run_tiny_vocoded(torch)
     paths.update(run_closed_loop_reduced(torch, wav_root))
+    torch.cuda.empty_cache()
+    run_cli(torch, build / "cli_smoke", wav_root)
+    torch.cuda.empty_cache()
     # after every full-width phase (ROADMAP Queue 3: a mask miss seen once there)
     run_tiny_reference(torch)
 
@@ -2628,4 +3155,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--artifact-child"]:
+        sys.exit(artifact_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -603,3 +603,104 @@ def test_png_writers(tmp_path):
     for path in paths:
         with open(path, "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+# ---------------------------------------------------------------------------
+# Not a test: the anyband protocol on the CPU, both packages on the same
+# weights, to put the reference's own spread over seeds beside the port's
+# held-out flip (ROADMAP Queue 3).
+#
+#   JAX_PLATFORMS=cpu python -m tests.test_torch_closed_loop --package jax --seed 0
+#   JAX_PLATFORMS=cpu python -m tests.test_torch_closed_loop --package torch --time-epoch
+#
+# Both run `run_closed_loop(anyband=True)` with the switches of the port's
+# `anyband_protocol_config()` in f32 (`scan_layers`, remat "dots", lr 3e-4),
+# the protocol's clip counts, epochs, batch and noise (128 / 64 clips, 120
+# epochs at 16, rms 1.0), over a narrow embedder (hidden 64, 2 layers, 32
+# conv channels, XLS-R's kernels and strides) and the default UNet, weights
+# drawn in numpy from the seed. `--time-epoch` instead runs two epochs of
+# two steps at batch 16 through each package's `train_addvisor` and prints
+# the wall and the epochs' `sec` (JAX's compile falls in them).
+# ---------------------------------------------------------------------------
+
+SPREAD_EMBEDDER = dict(hidden_size=64, num_layers=2, num_heads=2, intermediate_size=256,
+                       conv_dim=(32,) * 7, num_conv_pos_embeddings=128,
+                       num_conv_pos_embedding_groups=16, output_layer=2, scan_layers=True,
+                       remat=True, remat_policy="dots", dtype="float32")
+SPREAD_LOOP = dict(n_train=128, n_eval=64, epochs=120, batch_size=16, noise_rms=1.0,
+                   anyband=True)
+
+
+def spread_main() -> int:
+    import argparse
+    import json
+    import time
+    from pathlib import Path
+
+    from xai_audio_deepfakes_tpu.train import closed_loop as jcl
+    from xai_audio_deepfakes_tpu.train.train_addvisor import train_addvisor as jtrain
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import train_addvisor
+
+    ap = argparse.ArgumentParser(description="the anyband closed loop on the CPU")
+    ap.add_argument("--package", choices=["jax", "torch"], required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--time-epoch", action="store_true")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    s = args.seed
+    jcfg = jc.PipelineConfig(embedder=jc.EmbedderConfig(**SPREAD_EMBEDDER),
+                             train=jc.TrainConfig(model_lr=3e-4))
+    base = JPipeline(jcfg)
+    params = {
+        "encoder": random_params(base.encoder.init, jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 80000), jnp.float32), seed=1 + 10 * s),
+        "unet": random_params(base.unet.init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, 512, 248), jnp.float32), seed=2 + 10 * s),
+        "logreg": jax.tree.map(np.asarray, LogReg.init(64, seed=3)),
+    }
+    wav = np.random.default_rng(s).standard_normal((16, 80000)).astype(np.float32) * 0.1
+    records: list = []
+    res = None
+    t0 = time.perf_counter()
+    if args.package == "jax" and args.time_epoch:
+        jtrain(base, jax.tree.map(jnp.asarray, params), batches=lambda: [jnp.asarray(wav)] * 2,
+               num_epochs=2, log_fn=records.append)
+    elif args.package == "jax":
+        compiled: dict = {}
+
+        class FixedInit(JPipeline):
+            def init_params(self, rng, with_hifigan=False):
+                return jax.tree.map(jnp.asarray, params)
+
+            def jit_explain(self, decoder="unet", masking=None):
+                if (decoder, masking) not in compiled:
+                    compiled[decoder, masking] = super().jit_explain(decoder, masking)
+                return compiled[decoder, masking]
+
+        jcl.ADDvisorPipeline = FixedInit
+        res = jcl.run_closed_loop(jcfg, seed=s, log_fn=records.append, **SPREAD_LOOP)
+    else:
+        torch.set_num_threads(8)
+        cfg = tc.PipelineConfig(embedder=tc.EmbedderConfig(**SPREAD_EMBEDDER),
+                                train=tc.TrainConfig(model_lr=3e-4))
+        pipe = ADDvisorPipeline(cfg, device="cpu", seed=7)
+        load_jax_params(pipe, params)
+        if args.time_epoch:
+            train_addvisor(pipe, batches=lambda: [wav] * 2, num_epochs=2, log_fn=records.append)
+        else:
+            res = tcl.run_closed_loop(cfg, seed=s, device="cpu", pipe=pipe,
+                                      log_fn=records.append, **SPREAD_LOOP)
+    out = {"package": args.package, "seed": s, "wall_s": time.perf_counter() - t0,
+           "epoch_sec": [r["sec"] for r in records if "sec" in r]}
+    if res is not None:
+        out.update({k: res[k] for k in ("detector", "detector_holdout", "before", "after",
+                                        "after_train")})
+    line = json.dumps(out, default=float)
+    if args.out:
+        Path(args.out).write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(spread_main())

@@ -9,9 +9,15 @@ file is rebuilt. Nothing
 here runs at import time: on a machine without nvcc or a card the module
 imports, and only the kernel launches fail.
 
-`LAUNCHES` counts, per kernel, the launches its wrapper made. A wrapper adds
-one where it launches its kernel and nowhere else, so a run can show that it
-went through the kernels.
+Each kernel is a registered op in the `NAMESPACE` library (`addv::attention`,
+`addv::stft`, `addv::istft`, `addv::ln_gelu`, `addv::ln_gelu_`,
+`addv::conv_ln_gelu`), defined beside its wrapper: the op's CUDA
+implementation is the ctypes launch, its CPU implementation the plain
+version, and its fake implementation gives the output's shape, so that
+`torch.export` keeps each kernel as a node of its own. `LAUNCHES` counts, per
+kernel, the launches of the op's CUDA implementation: it adds one where it
+launches its kernel and nowhere else, so a run, or a loaded exported graph,
+can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("attention.cu", "stft.cu", "istft.cu", "ln_gelu.cu", "conv_ln_gelu.cu", "errors.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+NAMESPACE = "addv"
 
 LAUNCHES = {"attention": 0, "stft": 0, "istft": 0, "ln_gelu": 0, "conv_ln_gelu": 0}
 
@@ -161,6 +169,14 @@ def check(err: int, name: str) -> None:
 
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fresh(t: torch.Tensor) -> torch.Tensor:
+    """t as a registered op returns it: a tensor that starts its storage.
+    A plain version may return a view into one of its intermediates (the
+    iSTFT's trim at batch 1), which the op's fake implementation cannot
+    describe; the copy changes no value."""
+    return t if t.storage_offset() == 0 else t.clone()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtypes=(torch.float32,)) -> None:

@@ -7,10 +7,15 @@ pre-scaled by hd^-0.5. The kernel is `csrc/attention.cu`: in bf16 a
 tensor-core body that streams the keys (any T), in f32 a CUDA-core body
 whose score tile bounds T (`addv_attention_max_t`).
 
-The gradient is `_Attention`: the forward launches the kernel, the backward
-recomputes the normalised f32 softmax from the saved q, k, v and forms dq, dk
-and dv in plain PyTorch, as `_attention_bwd` of the JAX package does. It does
-not differentiate the kernel's own cast points.
+The kernel is the registered op `addv::attention` (`attention_op`): its CPU
+implementation is the plain version, its CUDA implementation launches
+kernel A, and its fake implementation gives the output's shape, so that
+`torch.export` keeps it as one node of the graph.
+
+The gradient is `_Attention`, around the op: the forward launches the
+kernel, the backward recomputes the normalised f32 softmax from the saved q,
+k, v and forms dq, dk and dv in plain PyTorch, as `_attention_bwd` of the JAX
+package does. It does not differentiate the kernel's own cast points.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, nh):
         ctx.save_for_backward(q, k, v)
         ctx.nh = nh
-        return _forward(q, k, v, nh)
+        return attention_op(q, k, v, nh)
 
     @staticmethod
     def backward(ctx, grad):
@@ -80,12 +85,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> tor
     gradient to q, k and v (`_Attention`)."""
     if needs_grad(q, k, v):
         return _Attention.apply(q, k, v, nh)
-    return _forward(q, k, v, nh)
+    return attention_op(q, k, v, nh)
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, nh)
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::attention", mutates_args=(), device_types="cpu")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
+    """Kernel A as a registered op; on the CPU, the plain version."""
+    return attention_plain(q, k, v, nh)
+
+
+@attention_op.register_fake
+def _(q, k, v, nh):
+    return torch.empty_like(q)
+
+
+@attention_op.register_kernel("cuda")
+def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nh: int) -> torch.Tensor:
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _cuda.require_cuda("attention", q, k, v, dtypes=tuple(_cuda.DTYPE_CODES))
     if not (q.shape == k.shape == v.shape and q.dtype == k.dtype == v.dtype and q.ndim == 3):

@@ -17,8 +17,14 @@ added in f32, the LayerNorm statistics are f32, the normalised value is
 rounded to the compute dtype, and GELU is taken in f32 from that value. In
 f32 this equals the unfused conv -> LayerNorm -> GELU.
 
-The gradient is `_ConvLnGelu`: the forward launches the kernel, the backward
-runs autograd through `conv_ln_gelu_plain` from the saved inputs.
+The kernel is the registered op `addv::conv_ln_gelu` (`conv_ln_gelu_op`):
+its CPU implementation is the plain version, its CUDA implementation the
+launch, with what reads a data pointer (the 16-byte check) and the weight
+image inside; its fake implementation gives the output's shape.
+
+The gradient is `_ConvLnGelu`, around the op: the forward launches the
+kernel, the backward runs autograd through `conv_ln_gelu_plain` from the
+saved inputs.
 """
 
 from __future__ import annotations
@@ -66,9 +72,24 @@ def conv_ln_gelu_plain(x, weight, conv_bias, scale, bias, eps: float, gelu: str)
     return ln_gelu_from_f32(a32, scale, bias, eps, gelu, x.dtype)
 
 
-def _forward(x, weight, conv_bias, scale, bias, eps: float, gelu: str) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return conv_ln_gelu_plain(x, weight, conv_bias, scale, bias, eps, gelu)
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::conv_ln_gelu", mutates_args=(), device_types="cpu")
+def conv_ln_gelu_op(x: torch.Tensor, weight: torch.Tensor, conv_bias: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                    gelu: str) -> torch.Tensor:
+    """Kernel E as a registered op; on the CPU, the plain version."""
+    return conv_ln_gelu_plain(x, weight, conv_bias, scale, bias, eps, gelu)
+
+
+@conv_ln_gelu_op.register_fake
+def _(x, weight, conv_bias, scale, bias, eps, gelu):
+    length_out = (x.shape[-1] - weight.shape[-1]) // STRIDE + 1
+    return x.new_empty((x.shape[0], weight.shape[0], length_out))
+
+
+@conv_ln_gelu_op.register_kernel("cuda")
+def _conv_ln_gelu_cuda(x: torch.Tensor, weight: torch.Tensor, conv_bias: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                       gelu: str) -> torch.Tensor:
     x = x.contiguous()
     _cuda.require_cuda("conv_ln_gelu", x, weight, dtypes=tuple(_cuda.DTYPE_CODES))
     _cuda.require_cuda("conv_ln_gelu", x, conv_bias, scale, bias,
@@ -108,7 +129,7 @@ class _ConvLnGelu(torch.autograd.Function):
     def forward(ctx, x, weight, conv_bias, scale, bias, eps, gelu):
         ctx.save_for_backward(x, weight, conv_bias, scale, bias)
         ctx.eps, ctx.gelu = eps, gelu
-        return _forward(x, weight, conv_bias, scale, bias, eps, gelu)
+        return conv_ln_gelu_op(x, weight, conv_bias, scale, bias, eps, gelu)
 
     @staticmethod
     def backward(ctx, grad):
@@ -131,4 +152,4 @@ def conv_ln_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias: torch.Tensor 
     args = (x, weight, conv_bias, scale, bias)
     if needs_grad(*args):
         return _ConvLnGelu.apply(*args, eps, gelu)
-    return _forward(*args, eps, gelu)
+    return conv_ln_gelu_op(*args, eps, gelu)

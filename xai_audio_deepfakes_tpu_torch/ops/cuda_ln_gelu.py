@@ -11,6 +11,14 @@ from the input the in-place launch would have overwritten. The kernel is
 `csrc/ln_gelu.cu`; it takes any contiguous x, a view with a storage offset
 (a data pointer that is not 16-byte aligned) included, and writes at x's
 residue modulo 16 bytes: `_empty_at_residue` places a fresh output there.
+
+The kernel is two registered ops over one launch: `addv::ln_gelu`
+(`ln_gelu_op`) allocates its output, `addv::ln_gelu_` (`ln_gelu_inplace_op`)
+declares x mutated and writes into it. Their CPU implementations are the
+plain version, their CUDA implementations the launch, with everything that
+reads a data pointer (the residue, `_empty_at_residue`) inside; the fake
+implementations give the output's shape. `torch.export` takes the in-place
+op as a functional node that writes into a copy of x.
 """
 
 from __future__ import annotations
@@ -91,28 +99,64 @@ def _check_gelu(gelu: str) -> None:
         raise ValueError(f"unknown gelu {gelu!r}")
 
 
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::ln_gelu", mutates_args=(), device_types="cpu")
+def ln_gelu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+               gelu: str) -> torch.Tensor:
+    """Kernel D into a new tensor, as a registered op; on the CPU, the plain
+    version."""
+    return ln_gelu_plain(x, scale, bias, eps, gelu)
+
+
+@ln_gelu_op.register_fake
+def _(x, scale, bias, eps, gelu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@ln_gelu_op.register_kernel("cuda")
+def _ln_gelu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                  gelu: str) -> torch.Tensor:
+    x = x.contiguous()
+    return _launch(x, _empty_at_residue(x), scale, bias, eps, gelu)
+
+
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::ln_gelu_", mutates_args=("x",), device_types="cpu")
+def ln_gelu_inplace_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                       gelu: str) -> None:
+    """Kernel D in place, x <- GELU(LN_C(x)), as a registered op; on the CPU,
+    the plain version copied into x."""
+    x.copy_(ln_gelu_plain(x, scale, bias, eps, gelu))
+
+
+@ln_gelu_inplace_op.register_fake
+def _(x, scale, bias, eps, gelu):
+    return None
+
+
+@ln_gelu_inplace_op.register_kernel("cuda")
+def _ln_gelu_inplace_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                          gelu: str) -> None:
+    _launch(x, x, scale, bias, eps, gelu)
+
+
 def ln_gelu_(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float, gelu: str) -> torch.Tensor:
     """In place: x [B, C, L] <- GELU(LN_C(x)); returns x. scale and bias are
     [C] f32. CPU tensors take the plain version; CUDA tensors launch kernel D."""
     _check_gelu(gelu)
-    if x.device.type == "cpu":
-        return x.copy_(ln_gelu_plain(x, scale, bias, eps, gelu))
-    return _launch(x, x, scale, bias, eps, gelu)
+    ln_gelu_inplace_op(x, scale, bias, eps, gelu)
+    return x
 
 
 class _LnGelu(torch.autograd.Function):
-    """Forward: kernel D into a fresh tensor (the plain version on the CPU).
+    """Forward: `ln_gelu_op`, kernel D into a fresh tensor (the plain version
+    on the CPU).
     Backward: autograd through `ln_gelu_plain` from the saved input."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, gelu):
         ctx.save_for_backward(x, scale, bias)
         ctx.eps, ctx.gelu = eps, gelu
-        if x.device.type == "cpu":
-            return ln_gelu_plain(x, scale, bias, eps, gelu)
-        x = x.contiguous()
-        return _launch(x, _empty_at_residue(x), scale, bias, eps, gelu)
+        return ln_gelu_op(x, scale, bias, eps, gelu)
 
     @staticmethod
     def backward(ctx, grad):

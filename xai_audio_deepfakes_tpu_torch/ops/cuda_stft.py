@@ -9,6 +9,12 @@ configuration of the repo), with a direct DFT otherwise (`uses_fft`,
 into the read; kernel C inverse-transforms the frames that touch each
 block's span of output samples and overlap-adds them in shared memory.
 
+Each kernel is a registered op, `addv::stft` (`stft_op`) and `addv::istft`
+(`istft_op`), that takes the STFT configuration as plain numbers and
+strings (`_cfg_args`): its CPU implementation is the plain version, its CUDA
+implementation the launch, and its fake implementation gives the outputs'
+shapes.
+
 Both transforms are linear, so their gradients (`_Stft`, `_Istft`) are the
 vjps of the plain versions and need no saved input, as the `bwd`s of
 `make_fused_stft` / `make_fused_istft` in the JAX package.
@@ -33,7 +39,7 @@ class _Stft(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cfg):
         ctx.cfg, ctx.like = cfg, (x.shape, x.device)
-        return _stft_forward(x, cfg)
+        return stft_op(x, *_cfg_args(cfg))
 
     @staticmethod
     def backward(ctx, g_re, g_im):
@@ -46,7 +52,7 @@ class _Istft(torch.autograd.Function):
     @staticmethod
     def forward(ctx, real, imag, cfg, length):
         ctx.cfg, ctx.length, ctx.like = cfg, length, (real.shape, real.device)
-        return _istft_forward(real, imag, cfg, length)
+        return istft_op(real, imag, *_cfg_args(cfg), length)
 
     @staticmethod
     def backward(ctx, grad):
@@ -62,7 +68,7 @@ def stft(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
         x = x[None]
     if needs_grad(x):
         return _Stft.apply(x, cfg)
-    return _stft_forward(x, cfg)
+    return stft_op(x, *_cfg_args(cfg))
 
 
 def uses_fft(n_fft: int) -> bool:
@@ -77,11 +83,41 @@ def istft_uses_fft(n_fft: int, hop: int) -> bool:
     return uses_fft(n_fft) and hop <= n_fft
 
 
-def _stft_forward(x: torch.Tensor, cfg: STFTConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    if x.device.type == "cpu":
-        return stft_plain(x, cfg)
+def _cfg_args(cfg: STFTConfig) -> tuple:
+    """The fields of `cfg` the ops take, in their order."""
+    return cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.window, cfg.center, cfg.pad_mode
+
+
+def _cfg(n_fft: int, hop_length: int, win_length: int, window: str, center: bool,
+         pad_mode: str = "reflect") -> STFTConfig:
+    return STFTConfig(n_fft=n_fft, hop_length=hop_length, win_length=win_length,
+                      window=window, center=center, pad_mode=pad_mode)
+
+
+def _num_frames(sig_len: int, n_fft: int, hop: int, center: bool) -> int:
+    return 1 + (sig_len + (2 * (n_fft // 2) if center else 0) - n_fft) // hop
+
+
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::stft", mutates_args=(), device_types="cpu")
+def stft_op(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, window: str,
+            center: bool, pad_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B as a registered op, [B, L] -> (re, im) [B, F, T]; on the CPU,
+    the plain version."""
+    return stft_plain(x, _cfg(n_fft, hop_length, win_length, window, center, pad_mode))
+
+
+@stft_op.register_fake
+def _(x, n_fft, hop_length, win_length, window, center, pad_mode):
+    shape = (x.shape[0], n_fft // 2 + 1, _num_frames(x.shape[-1], n_fft, hop_length, center))
+    return x.new_empty(shape), x.new_empty(shape)
+
+
+@stft_op.register_kernel("cuda")
+def _stft_cuda(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, window: str,
+               center: bool, pad_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    cfg = _cfg(n_fft, hop_length, win_length, window, center, pad_mode)
     _cuda.require_cuda("stft", x)
-    n_fft, hop = cfg.n_fft, cfg.hop_length
+    hop = hop_length
     # the kernel folds a reflect pad into its read; any other pad is made here
     # (and F.pad's reflect mode raises on a signal no longer than the pad)
     pad = n_fft // 2 if cfg.center and cfg.pad_mode == "reflect" and x.shape[-1] > n_fft // 2 else 0
@@ -121,17 +157,33 @@ def istft(real: torch.Tensor, imag: torch.Tensor, cfg: STFTConfig, length: int) 
         real, imag = real[None], imag[None]
     if needs_grad(real, imag):
         return _Istft.apply(real, imag, cfg, length)
-    return _istft_forward(real, imag, cfg, length)
+    return istft_op(real, imag, *_cfg_args(cfg), length)
 
 
-def _istft_forward(real: torch.Tensor, imag: torch.Tensor, cfg: STFTConfig,
-                   length: int) -> torch.Tensor:
-    if real.device.type == "cpu":
-        return istft_plain(real, imag, cfg, length)
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::istft", mutates_args=(), device_types="cpu")
+def istft_op(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+             win_length: int, window: str, center: bool, pad_mode: str,
+             length: int) -> torch.Tensor:
+    """Kernel C as a registered op, (re, im) [B, F, T] -> [B, length]; on the
+    CPU, the plain version."""
+    cfg = _cfg(n_fft, hop_length, win_length, window, center, pad_mode)
+    return _cuda.fresh(istft_plain(real, imag, cfg, length))
+
+
+@istft_op.register_fake
+def _(real, imag, n_fft, hop_length, win_length, window, center, pad_mode, length):
+    return real.new_empty((real.shape[0], length))
+
+
+@istft_op.register_kernel("cuda")
+def _istft_cuda(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+                win_length: int, window: str, center: bool, pad_mode: str,
+                length: int) -> torch.Tensor:
+    cfg = _cfg(n_fft, hop_length, win_length, window, center, pad_mode)
     real, imag = real.contiguous(), imag.contiguous()
     _cuda.require_cuda("istft", real, imag)
     b, f, t = real.shape
-    n_fft, hop = cfg.n_fft, cfg.hop_length
+    hop = hop_length
     if imag.shape != real.shape or f != cfg.num_bins:
         raise ValueError(f"istft: re {tuple(real.shape)}, im {tuple(imag.shape)}")
     win = device_constant("window", real.device, cfg.window, cfg.win_length, n_fft)

@@ -51,7 +51,12 @@ def derived(module: torch.nn.Module, name: str, fn, *deps: torch.Tensor):
     not by the tensor object, so a new view of the same scales (the
     per-layer row of `quant_scales`, taken at every call) hits the cache;
     the cache holds the deps, so their memory cannot be reused by another
-    tensor while it is kept."""
+    tensor while it is kept. Under `torch.export` the deps are the graph's
+    inputs, with no memory of their own: the result is computed in the
+    graph and kept nowhere."""
+    if torch.compiler.is_compiling():
+        with torch.no_grad():
+            return fn(*deps)
     key = tuple((d.data_ptr(), tuple(d.shape), 0 if d.is_inference() else d._version)
                 for d in deps)
     cache = module.__dict__.setdefault("_derived_cache", {})
