@@ -1,0 +1,267 @@
+#!/usr/bin/env python3
+"""Diagnostics of the PyTorch/CUDA port on one NVIDIA card, beside
+`chip_smoke.py` (whose helpers they use) and never run by it: each prints
+the readings that `PERF.md` cites for it.
+
+    python3 chip_diag.py remat-off DIR [DIR ...]
+        "training remat off, 3 steps" of `chip_smoke.py` (bf16 embedder with
+        both fused frontend kernels, f32 UNet, 2 clips) from the checkout at
+        each DIR in turn, each in its own process (`chip_smoke._remat_steps`
+        of that checkout): step ms and peak memory. Name the checkouts
+        parent, change, change, parent to compare two commits in one call.
+    python3 chip_diag.py unet-trace [--seeds 11 5 4]
+        the tiny bf16 UNet of `bench.py`'s default configuration on the card
+        against the CPU, layer by layer (`unet_trace`).
+    python3 chip_diag.py int8-sweep [--seeds 12] [--init lecun_normal|normal] [--out F]
+        the int8 checks of `chip_smoke.tiny_int8_case` over weight seeds
+        0..N-1, for each tiny int8 configuration and the bench default with
+        the f32 UNet; `--init normal` draws the weights from the untruncated
+        N(0, 1/fan_in) the port used before `models/init.py::lecun_normal_`.
+
+Every command exits 1 without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+REMAT_OFF = """
+import sys
+sys.path.insert(0, '.')
+import numpy as np, torch, chip_smoke
+from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True, fused_conv=True))
+rng = np.random.default_rng(4)
+wavs = [(rng.standard_normal((2, cfg.audio.num_samples)) * 0.1).astype(np.float32) for _ in range(3)]
+chip_smoke._remat_steps(torch, cfg, wavs, "off")
+"""
+
+
+def remat_off(dirs: list) -> int:
+    rc = 0
+    for d in dirs:
+        print(f"== training remat off in {d}", flush=True)
+        rc |= subprocess.run([sys.executable, "-c", REMAT_OFF], cwd=d, timeout=900).returncode
+    return rc
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 steps at max(|a|, |b|) (a step is 2^(e - 7) for a
+    value in [2^e, 2^(e+1)); zero where both are zero)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0**-126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (a - b).abs() / step
+
+
+def round_once(m, x):
+    """`m`'s (a port `Conv2d` / `ConvTranspose2d`, float path) bf16 output
+    as one f64 product of its bf16 operands rounded once to bf16, the bias
+    added in bf16 (the cast points of `models/unet.py`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xai_audio_deepfakes_tpu_torch.models import unet
+
+    xd = x.cpu().to(torch.bfloat16).double()
+    wd = m.weight.detach().cpu().to(torch.bfloat16).double()
+    if isinstance(m, unet.ConvTranspose2d):
+        y = F.conv_transpose2d(xd, wd, None, m.stride)
+    else:
+        y = F.conv2d(xd, wd, None, m.stride, m.padding, m.dilation)
+    return y.to(torch.bfloat16) + m.bias.detach().cpu().to(torch.bfloat16)[:, None, None]
+
+
+def record(module, names):
+    """Forward hooks on `module`'s submodules `names` -> ({name: (input,
+    output)} filled on each call, the hook handles)."""
+    got, handles = {}, []
+    for name in names:
+        def hook(_, inputs, output, name=name):
+            got[name] = (inputs[0].detach().cpu().clone(), output.detach().cpu().clone())
+        handles.append(module.get_submodule(name).register_forward_hook(hook))
+    return got, handles
+
+
+def unet_trace(torch, seeds: list) -> dict:
+    """For each seed, the tiny bench-default pipelines of
+    `chip_smoke.tiny_case_pipes` (card, CPU with the same weights, f32 CPU).
+    The card's explain records every conv, transposed conv, BatchNorm and
+    leaky ReLU of the UNet (input and output). Per layer, in call order:
+      same input: the CPU's layer on the card's input, elements that differ
+        from the card's output and the largest difference in bf16 steps;
+      round once: for a conv, the card's and the CPU's output each against
+        the f64 product of the same bf16 operands rounded once to bf16;
+      chain: the CPU's UNet run on the card's UNet input, its mean |card -
+        CPU| over the mean |CPU - f32 CPU| at that layer.
+    Then the mask and both waveforms, mean |card - CPU| over mean |CPU - f32|
+    (the ratio check (ii)'s mean bar holds at 0.4), with the CPU UNet fed
+    the card's input and its own."""
+    import chip_smoke
+    from xai_audio_deepfakes_tpu_torch.models import unet as unet_mod
+
+    emb, un = chip_smoke.TINY_INT8_CASES["bench default (bf16, int8, tanh, bf16 UNet)"]
+    g = torch.Generator().manual_seed(6)
+    wav = torch.randn(2, 8000, generator=g) * 0.1
+    kinds = (unet_mod.Conv2d, unet_mod.ConvTranspose2d, unet_mod.BatchNorm2d, torch.nn.LeakyReLU)
+    result = {}
+    for seed in seeds:
+        cfg, (gpu, cpu, f32) = chip_smoke.tiny_case_pipes(torch, emb, un, seed)
+        names = [n for n, m in gpu.unet.named_modules() if isinstance(m, kinds)]
+        top: dict = {}
+
+        def keep(_, inputs, output, key):
+            top[key] = (inputs[0].detach().cpu().clone(), output.detach().cpu().clone())
+
+        hooks = [p.unet.register_forward_hook(lambda *a, k=k: keep(*a, k))
+                 for k, p in (("card", gpu), ("cpu", cpu))]
+        card_layers, handles = record(gpu.unet, names)
+        outs = {"card": gpu.explain(wav.cuda()), "cpu": cpu.explain(wav)}
+        torch.cuda.synchronize()
+        for h in hooks + handles:
+            h.remove()
+        outs["f32"] = f32.explain(wav)
+        card_in = top["card"][0]
+        with torch.inference_mode():
+            cpu_chain, h1 = record(cpu.unet, names)
+            cpu_mask_from_card = cpu.unet(card_in)
+            for h in h1:
+                h.remove()
+            f32_chain, h2 = record(f32.unet, names)
+            f32_mask_from_card = f32.unet(card_in)
+            for h in h2:
+                h.remove()
+        rows = []
+        with torch.inference_mode():
+            for name in names:
+                x, y_card = card_layers[name]
+                m = cpu.unet.get_submodule(name)
+                y_cpu = m(x)
+                d = bf16_ulps(y_card.float(), y_cpu.float())
+                row = {"layer": name, "kind": type(m).__name__, "shape": list(y_card.shape),
+                       "dtype": str(y_card.dtype).removeprefix("torch."),
+                       "same_input_off": int((d > 0).sum()), "n": y_card.numel(),
+                       "same_input_max_steps": float(d.max())}
+                if isinstance(m, (unet_mod.Conv2d, unet_mod.ConvTranspose2d)):
+                    ref = round_once(m, x)
+                    for who, y in (("card", y_card), ("cpu", y_cpu)):
+                        r = bf16_ulps(y.float(), ref.float())
+                        row[f"round_once_{who}_off"] = int((r > 0).sum())
+                        row[f"round_once_{who}_max_steps"] = float(r.max())
+                own = (cpu_chain[name][1].float() - f32_chain[name][1].float()).abs().mean()
+                err = (y_card.float() - cpu_chain[name][1].float()).abs().mean()
+                row["chain_ratio"] = float(err / own) if float(own) else 0.0
+                rows.append(row)
+
+        def ratio(key, cpu_out):
+            want_f32 = getattr(outs["f32"], key).cpu()
+            err = (getattr(outs["card"], key).cpu() - cpu_out).abs().mean()
+            return float(err / (getattr(outs["cpu"], key).cpu() - want_f32).abs().mean())
+
+        finals = {key: ratio(key, getattr(outs["cpu"], key)) for key in chip_smoke.EXPLAIN_KEYS}
+        in_err = float((card_in - top["cpu"][0]).abs().max())
+        finals["mask, the CPU UNet on the card's input"] = float(
+            (top["card"][1] - cpu_mask_from_card).abs().mean()
+            / (cpu_mask_from_card - f32_mask_from_card).abs().mean())
+        print(f"== unet trace, seed {seed}: UNet input card vs CPU max_abs_err {in_err:.3e}")
+        for r in rows:
+            once = (f", round once card {r['round_once_card_off']} (max {r['round_once_card_max_steps']:g}),"
+                    f" CPU {r['round_once_cpu_off']} (max {r['round_once_cpu_max_steps']:g})"
+                    if "round_once_card_off" in r else "")
+            print(f"  {r['layer']} {r['kind']} {r['dtype']} {r['shape']}: same input off "
+                  f"{r['same_input_off']} of {r['n']} (max {r['same_input_max_steps']:g} bf16 "
+                  f"steps){once}, chain ratio {r['chain_ratio']:.3f}")
+        print("  final mean ratios (check (ii)'s bar 0.4): " + json.dumps(finals))
+        result[seed] = {"input_max_abs_err": in_err, "layers": rows, "finals": finals}
+    return result
+
+
+def normal_init_(weight, fan_in: int, generator):
+    """The port's initialiser before lecun_normal: an untruncated
+    N(0, 1/fan_in) drawn in the weight's dtype."""
+    import torch
+
+    with torch.no_grad():
+        weight.normal_(0.0, fan_in**-0.5, generator=generator)
+    return weight
+
+
+def int8_sweep(torch, seeds: int = 12, init: str = "lecun_normal") -> dict:
+    """The int8 checks of `chip_smoke.tiny_int8_case` over `seeds` weight
+    seeds, each of `SWEEP_CASES`: pass counts of the former bar (1/10 of
+    the int8-vs-f32 relative L2), of checks (i), (ii), (iii) and of all
+    three, and each run's printed lines."""
+    import chip_smoke
+    from xai_audio_deepfakes_tpu_torch.models import hifigan, unet, wav2vec2
+
+    cases = {**chip_smoke.TINY_INT8_CASES,  # and the bench default with the f32 UNet
+             "bench default, f32 UNet": (dict(dtype="bfloat16", quant="int8", gelu="tanh"), {})}
+    modules = (wav2vec2, unet, hifigan)
+    saved = [m.lecun_normal_ for m in modules]
+    if init == "normal":
+        for m in modules:
+            m.lecun_normal_ = normal_init_
+    result: dict = {}
+    try:
+        for case, (emb, un) in cases.items():
+            counts = dict.fromkeys(("old", "i", "ii", "iii", "all"), 0)
+            per_seed = []
+            for seed in range(seeds):
+                res = chip_smoke.tiny_int8_case(torch, emb, un, seed=seed)
+                res["all"] = res["i"] and res["ii"] and res["iii"]
+                for k in counts:
+                    counts[k] += bool(res[k])
+                per_seed.append({k: bool(res[k]) for k in counts} | {"lines": res["lines"]})
+            result[f"{case} | {init}"] = {"passes": counts, "seeds": seeds, "per_seed": per_seed}
+            print(f"int8 sweep, {case}, {init} initialiser: passes of {seeds} seeds "
+                  + json.dumps(counts), flush=True)
+    finally:
+        for m, fn in zip(modules, saved):
+            m.lecun_normal_ = fn
+    return result
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("remat-off").add_argument("dirs", nargs="+")
+    t = sub.add_parser("unet-trace")
+    t.add_argument("--seeds", type=int, nargs="+", default=[11, 5, 4])
+    t.add_argument("--out")
+    s = sub.add_parser("int8-sweep")
+    s.add_argument("--seeds", type=int, default=12)
+    s.add_argument("--init", choices=("lecun_normal", "normal"), default="lecun_normal")
+    s.add_argument("--out")
+    args = p.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_diag: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.cmd == "remat-off":
+        return remat_off(args.dirs)
+    if args.cmd == "unet-trace":
+        res = unet_trace(torch, args.seeds)
+    else:
+        res = int8_sweep(torch, args.seeds, args.init)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

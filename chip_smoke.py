@@ -69,8 +69,14 @@ PyTorch built for CUDA. It
     clips/s and the stage split by CUDA events; times the frontend's
     separate bf16 bias adds; and holds a tiny explain of each new
     configuration (with `quant_conv` and `UNetConfig.quant` once, and
-    `fused_attention=False`) on the card against the CPU, at bars set by
-    each configuration's own distance from the f32 port (`run_tiny_configs`);
+    `fused_attention=False`) on the card against the CPU, the float ones at
+    bars set by each configuration's own distance from the f32 port, the
+    int8 ones by three checks (`run_tiny_configs`, `tiny_int8_case`): every
+    int8 call replayed on the CPU bit for bit, the CPU pinned to the card's
+    codes at the bf16 bars, and the free run (each call within three code
+    steps with the earlier codes pinned, probabilities within 1x the
+    int8-vs-f32 relative L2; `chip_diag.py int8-sweep` runs them over 12
+    weight seeds);
     and saliency through `run_attribution_metrics` on `bench.py`'s int8
     embedder at batch 2 (A 36, a finite, non-zero map);
 10. serves the CLI's default configuration (the entry point's) through
@@ -157,10 +163,21 @@ PyTorch built for CUDA. It
     `train-detector` on datagen's features; `vocode-datagen`; `train` and
     `train --resume`; `closed-loop --n-train 32 --n-eval 16 --epochs 1`),
     checks each one's JSON line and files and prints its wall;
-19. last of the phases, a tiny f32 explain on the card 20 times against
+19. runs the parallel layer at world size 1 over NCCL at full width
+    (`run_parallel`): the sharded explain and the pipelined explain (S = 1)
+    at B=8 bit-equal to `pipe.explain` (launches A 9, B 1, C 2 each), the
+    sharded sweep equal to the plain sweep, two mesh training steps with
+    the f32 and with the bf16 UNet bit-equal to the plain steps (A 27, B 1,
+    C 2, D 3, E 18 a step), a `torch.distributed.checkpoint` round trip,
+    one full-width layer at tp=2 with its two shards run one after the
+    other (f32 at relative L2 1e-5, bf16 at the bf16 bars; kernel A on 8
+    heads a shard), and the untruncated 48-layer XLS-R-2B: its explain at
+    B=8 (A 48) and one training step (A 240 with remat), with peak memory;
+    more than one card is not exercised;
+20. last of the phases, a tiny f32 explain on the card 20 times against
     one on the CPU with the same weights (mask 1e-5, waveforms 2e-4,
     probabilities 1e-4), the largest deviations printed;
-20. prints the `kernels` JSON line and, last, the device line. A kernel's
+21. prints the `kernels` JSON line and, last, the device line. A kernel's
     `launches` are those of every driven path together, each path counted
     from zero and named in `launches_by_path`; its `body` names the design
     that ran.
@@ -1127,37 +1144,116 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def check_bf16_bars(name: str, got, want, want_f32) -> None:
+def bf16_bars(got, want, want_f32) -> tuple[bool, str]:
     """The bf16 bars of `tests/test_torch_bf16.py`: mean |got - want| at most
     0.4x mean |want - want_f32| (the same configuration's own bf16-vs-f32
     deviation), max at most max(that deviation's max, two bf16 steps at
-    max |want|)."""
+    max |want|). -> (held, the line that says so)."""
     import torch
 
     got, want, want_f32 = got.float().cpu(), want.float().cpu(), want_f32.float().cpu()
     if not bool(torch.isfinite(got).all()):
-        fail(f"{name}: non-finite output")
+        return False, "non-finite output"
     err, own = (got - want).abs(), (want - want_f32).abs()
     two_steps = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 6)
     bar_max = max(float(own.max()), two_steps)
     ok = float(err.mean()) <= 0.4 * float(own.mean()) and float(err.max()) <= bar_max
-    print(f"  {name}: mean_abs_err {float(err.mean()):.3e} (bar {0.4 * float(own.mean()):.3e}), "
-          f"max_abs_err {float(err.max()):.3e} (bar {bar_max:.3e}) {'ok' if ok else 'FAIL'}")
+    return ok, (f"mean_abs_err {float(err.mean()):.3e} (bar {0.4 * float(own.mean()):.3e}), "
+                f"max_abs_err {float(err.max()):.3e} (bar {bar_max:.3e}) {'ok' if ok else 'FAIL'}")
+
+
+def check_bf16_bars(name: str, got, want, want_f32) -> None:
+    """`bf16_bars`, printed; fails the run where they do not hold."""
+    ok, line = bf16_bars(got, want, want_f32)
+    print(f"  {name}: {line}")
     if not ok:
         fail(f"{name}: the card and the CPU disagree beyond the bf16 bars")
 
 
-def run_tiny_configs(torch) -> None:
-    """A tiny explain of each configuration this slice added, on the card
-    against the port on the CPU with the same weights (and, for int8-static,
-    the scales calibrated on the card). The reference for each bar is the
-    same configuration's own distance from the f32, unquantized port on the
-    CPU: bf16 outputs at the bf16 bars (`check_bf16_bars`), int8
-    probabilities at relative L2 <= 1/10 of the int8-vs-f32 relative L2,
-    f32 UNet masks at 1e-5 and their waveforms at 2e-4. The int32 products
-    are exact on both devices; the gap is the float arithmetic around them
-    (cuBLAS / cuDNN sum orders in bf16 against the CPU's), which moves a
-    bf16 rounding, and through it now and then a quantization step."""
+class Int8Log:
+    """A hook for `ops/quant.py::set_int8_hook`: keeps a host copy of every
+    int8 call (kind, inputs, outputs) in order. With `pin` (another run's
+    log, or a list of its quantizations), each activation quantization
+    returns that run's codes and scale instead of its own; `own` keeps the
+    codes this run computed there before the pin replaced them."""
+
+    def __init__(self, pin=None):
+        self.calls: list = []
+        self.pin = pin.quantizes() if isinstance(pin, Int8Log) else pin
+        self.own: list = []
+        self.n_quantize = 0
+
+    def quantizes(self) -> list:
+        return [c for c in self.calls if c[0].startswith("quantize")]
+
+    def __call__(self, kind, inputs, outputs):
+        import torch
+
+        host = lambda v: v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        if kind.startswith("quantize"):
+            if self.pin is not None:
+                if self.n_quantize >= len(self.pin):
+                    fail(f"pinned int8 run: call {self.n_quantize} has no counterpart")
+                pkind, _, (q, scale) = self.pin[self.n_quantize]
+                if pkind != kind or q.shape != outputs[0].shape:
+                    fail(f"pinned int8 run: call {self.n_quantize} is {kind} "
+                         f"{tuple(outputs[0].shape)}, the card's {pkind} {tuple(q.shape)}")
+                dev = outputs[0].device
+                self.own.append(host(outputs[0]))
+                outputs = (q.to(dev), scale.to(dev) if isinstance(scale, torch.Tensor) else scale)
+            self.n_quantize += 1
+            self.calls.append((kind, tuple(host(v) for v in inputs),
+                               tuple(host(v) for v in outputs)))
+        else:
+            self.calls.append((kind, tuple(host(v) for v in inputs), host(outputs)))
+        return outputs
+
+
+def replay_int8(torch, log: Int8Log) -> dict:
+    """Every call of `log` (the card's) replayed on the CPU from its own
+    inputs -> {kind: [bit-equal, calls]}."""
+    from xai_audio_deepfakes_tpu_torch.ops import quant
+
+    fns = {"quantize_symmetric": quant.quantize_symmetric,
+           "quantize_with_scale": quant.quantize_scaled,
+           "int_mm": quant.int_mm, "rescale": quant.rescale}
+    tally: dict = {}
+    with quant.quant_hook_off():
+        for kind, inputs, want in log.calls:
+            got = fns[kind](*inputs)
+            pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+            same = all(torch.equal(g, w) if isinstance(w, torch.Tensor) else g == w
+                       for g, w in pairs)
+            t = tally.setdefault(kind, [0, 0])
+            t[0] += same
+            t[1] += 1
+    return tally
+
+
+TINY_UNET = dict(freq_bins=64, frames=24, base_channels=4)
+TINY_INT8_CASES = {  # the int8 cases of `run_tiny_configs` (and `chip_diag.py int8-sweep`)
+    "bench default (bf16, int8, tanh, bf16 UNet)": (
+        dict(dtype="bfloat16", quant="int8", gelu="tanh"), dict(dtype="bfloat16")),
+    "bench int8-static": (dict(dtype="bfloat16", quant="int8-static", gelu="tanh"),
+                          dict(dtype="bfloat16")),
+    "quant_conv + UNet int8": (dict(dtype="bfloat16", quant="int8", quant_conv="int8",
+                                    conv_dim=(128, 128, 128)), dict(quant="int8")),
+}
+EXPLAIN_KEYS = ("mask", "relevant_wav", "irrelevant_wav")
+# Check (iii)'s bound on one int8 call's codes, card against CPU, every
+# earlier call's codes pinned. The quantizer's input is bf16: at its top
+# octave one bf16 step is 1/2 to 1 code step (amax / 127), so inputs two
+# bf16 steps apart (a LayerNorm's rounding after a residual one step apart,
+# or kernel A's output against the plain attention's) give codes up to
+# three steps apart. `chip_diag.py int8-sweep` (12 seeds x 4 tiny configurations x
+# 2 initialisers) saw at most 1 in 83 runs, 2 in 12, 3 in one.
+CODE_STEP_BOUND = 3
+PROB_KEYS = ("probs_clean", "probs_relevant", "probs_irrelevant")
+
+
+def tiny_case_pipes(torch, emb: dict, unet: dict, seed: int = 5):
+    """A tiny pipeline of the case on the card, the same weights on the CPU,
+    and the f32 unquantized configuration on the CPU with those weights."""
     from xai_audio_deepfakes_tpu_torch.config import (
         AudioConfig,
         EmbedderConfig,
@@ -1166,62 +1262,184 @@ def run_tiny_configs(torch) -> None:
     )
     from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 
-    tiny_unet = dict(freq_bins=64, frames=24, base_channels=4)
-    cases = {
+    cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5),
+                         embedder=dataclasses.replace(EmbedderConfig.tiny(), **emb),
+                         unet=UNetConfig(**TINY_UNET, **unet))
+    plain = cfg.replace(embedder=dataclasses.replace(cfg.embedder, dtype="float32",
+                                                     quant="none", quant_conv="none"),
+                        unet=UNetConfig(**TINY_UNET))
+    gpu = ADDvisorPipeline(cfg, device="cuda", seed=seed)
+    pipes = [gpu, ADDvisorPipeline(cfg, device="cpu", seed=seed),
+             ADDvisorPipeline(plain, device="cpu", seed=seed)]
+    for pipe in pipes[1:]:
+        pipe.encoder.load_state_dict(gpu.encoder.state_dict())
+        pipe.unet.load_state_dict(gpu.unet.state_dict())
+        pipe.logreg = {k: v.cpu() for k, v in gpu.logreg.items()}
+    return cfg, pipes
+
+
+def tiny_int8_case(torch, emb: dict, unet: dict, seed: int = 5) -> dict:
+    """The int8 checks of one tiny configuration, card against CPU, nothing
+    failed here (the caller holds the result):
+      (i) replay: every int8 call of the card's explain (activation
+          quantizations, int32 products, rescales), replayed on the CPU
+          from the card's inputs, bit for bit;
+     (ii) pinned: the CPU explain with the card's codes and scales at every
+          quantization, its probabilities, mask and waveforms against the
+          card's at the bf16 bars, the f32 CPU run the reference;
+    (iii) free run: no code more than `CODE_STEP_BOUND` steps from the
+          card's in any call, each call taken on the CPU with every earlier
+          call's codes pinned
+          and the embedder fed the card's own clips (so that its input
+          differs from the card's by the float arithmetic since the last
+          int8 call only: the codes of the CPU's whole free run drift
+          further, through every earlier flip, and are printed); and the
+          whole free run's probabilities at a relative L2 of at most the
+          int8-vs-f32 relative L2 (the UNet int8 case's masks and
+          waveforms too), the former bar, 1/10 of it, beside it.
+    -> {"i", "ii", "iii", "old": held or not, "lines": what to print}."""
+    from xai_audio_deepfakes_tpu_torch.ops import quant
+
+    cfg, (gpu, cpu, f32) = tiny_case_pipes(torch, emb, unet, seed)
+    g = torch.Generator().manual_seed(6)
+    wav = torch.randn(2, 8000, generator=g) * 0.1
+    calib = torch.randn(4, 8000, generator=g) * 0.1
+    if cfg.embedder.quant == "int8-static":
+        scales = gpu.calibrate_quant(calib.cuda(), batch_size=2)
+        cpu.quant_scales = {k: v.cpu() for k, v in scales.items()}
+    logs = {"card": Int8Log()}
+    logs["free"] = Int8Log()
+    logs["pinned"] = None
+    outs = {}
+    for name, pipe, x in (("card", gpu, wav.cuda()), ("free", cpu, wav)):
+        quant.set_int8_hook(logs[name])
+        try:
+            outs[name] = pipe.explain(x)
+        finally:
+            quant.set_int8_hook(None)
+    torch.cuda.synchronize()
+    logs["pinned"] = Int8Log(pin=logs["card"])
+    quant.set_int8_hook(logs["pinned"])
+    try:
+        outs["pinned"] = cpu.explain(wav)
+    finally:
+        quant.set_int8_hook(None)
+    outs["f32"] = f32.explain(wav)
+
+    def get(name, key):
+        if key == "probs":
+            return torch.cat([getattr(outs[name], n).cpu() for n in PROB_KEYS])
+        return getattr(outs[name], key).cpu()
+
+    lines, res = [], {}
+    tally = replay_int8(torch, logs["card"])
+    res["i"] = all(a == n for a, n in tally.values()) and logs["pinned"].n_quantize == len(
+        logs["card"].quantizes())
+    lines.append("(i) replay on the CPU from the card's inputs, bit-equal: " + ", ".join(
+        f"{k} {a} of {n}" for k, (a, n) in tally.items()) + f" {'ok' if res['i'] else 'FAIL'}")
+    held = []
+    f32_unet = cfg.unet.dtype == "float32" and cfg.unet.quant == "none"
+    for key in ("probs",) + EXPLAIN_KEYS:
+        if key != "probs" and f32_unet:  # an f32 UNet's outputs: the f32 bars
+            atol = 1e-5 if key == "mask" else 2e-4
+            err = float((get("card", key) - get("pinned", key)).abs().max())
+            ok, line = err <= atol, f"max_abs_err {err:.3e} (atol {atol:g}) {'ok' if err <= atol else 'FAIL'}"
+        else:
+            ok, line = bf16_bars(get("card", key), get("pinned", key), get("f32", key))
+        held.append(ok)
+        lines.append(f"(ii) pinned codes, {key}: {line}")
+    res["ii"] = all(held)
+    card_q, free_q = logs["card"].quantizes(), logs["free"].quantizes()
+
+    def steps_of(mine, theirs) -> list:
+        """Per call (shape, largest code step, codes off, codes off by more
+        than one) of two lists of int8 code tensors."""
+        out = []
+        for a, b in zip(mine, theirs):
+            d = (a.int() - b.int()).abs()
+            out.append((tuple(d.shape), int(d.max()), int((d > 0).sum()), int((d > 1).sum())))
+        return out
+
+    # each call on the CPU with every earlier call's codes pinned and the
+    # embedder fed the card's own clips: its input differs from the card's
+    # by the float arithmetic since the last int8 call only
+    embed_in = torch.cat([wav, get("card", "relevant_wav"), get("card", "irrelevant_wav")])
+    count = Int8Log()
+    quant.set_int8_hook(count)
+    try:
+        cpu.classify(embed_in)
+        n_embed = len(count.quantizes())
+        logs["embed"] = Int8Log(pin=card_q[len(card_q) - n_embed:])
+        quant.set_int8_hook(logs["embed"])
+        cpu.classify(embed_in)
+    finally:
+        quant.set_int8_hook(None)
+    n_unet = len(card_q) - n_embed
+    per_call = (steps_of(logs["pinned"].own[:n_unet], [c[2][0] for c in card_q[:n_unet]])
+                + steps_of(logs["embed"].own, [c[2][0] for c in card_q[n_unet:]]))
+    steps = max((c[1] for c in per_call), default=0)
+    codes_ok = len(per_call) == len(card_q) and steps <= CODE_STEP_BOUND
+    res["calls"] = per_call
+    lines.append(f"(iii) each call on the CPU, every earlier call's codes pinned, the embedder on "
+                 f"the card's clips: {len(per_call)} quantizations (card {len(card_q)}), largest "
+                 f"code step {steps} (bound {CODE_STEP_BOUND}); per call (shape, largest step, off, "
+                 f"off by more than one) "
+                 f"{per_call} {'ok' if codes_ok else 'FAIL'}")
+    free = steps_of([c[2][0] for c in free_q], [c[2][0] for c in card_q])
+    res["free_calls"] = free
+    lines.append(f"(iii) free run, codes against the card's (printed): largest step "
+                 f"{max((c[1] for c in free), default=0)}, off {sum(c[2] for c in free)}; "
+                 f"per call {free}")
+    free_ok, old_ok = [codes_ok], []
+    keys = ("probs",) + (EXPLAIN_KEYS if cfg.unet.quant != "none" else ())
+    for key in keys:
+        err, own = rel_l2(get("card", key), get("free", key)), rel_l2(get("free", key),
+                                                                        get("f32", key))
+        free_ok.append(err <= own)
+        old_ok.append(err <= 0.1 * own)
+        lines.append(f"(iii) free run, {key}: rel_l2 {err:.3e} (bar 1x the int8-vs-f32 rel_l2 "
+                     f"{own:.3e}; the former 1/10 bar {0.1 * own:.3e}: "
+                     f"{'within' if old_ok[-1] else 'outside'}) {'ok' if free_ok[-1] else 'FAIL'}")
+    res["iii"], res["old"] = all(free_ok), all(old_ok)
+    res["lines"] = lines
+    return res
+
+
+def run_tiny_configs(torch) -> None:
+    """A tiny explain of each configuration this slice added, on the card
+    against the port on the CPU with the same weights (and, for int8-static,
+    the scales calibrated on the card). bf16 outputs are held at the bf16
+    bars (`check_bf16_bars`), the reference being the same configuration's
+    own distance from the f32, unquantized port on the CPU; f32 UNet masks
+    at 1e-5 and their waveforms at 2e-4. The int8 configurations are held
+    by the three checks of `tiny_int8_case`: the int32 products are exact
+    on both devices, and the float arithmetic around them (cuBLAS / cuDNN
+    sum orders in bf16 against the CPU's) moves a bf16 rounding, and
+    through it now and then a quantization step."""
+    for case, (emb, unet) in TINY_INT8_CASES.items():
+        res = tiny_int8_case(torch, emb, unet)
+        print(f"tiny explain, {case}, card vs CPU:")
+        for line in res["lines"]:
+            print("  " + line)
+        for check in ("i", "ii", "iii"):
+            if not res[check]:
+                fail(f"tiny explain {case}: int8 check ({check}) does not hold")
+    float_cases = {
         "entry config (bf16 embedder)": (dict(dtype="bfloat16"), {}),
-        "bench default (bf16, int8, tanh, bf16 UNet)": (
-            dict(dtype="bfloat16", quant="int8", gelu="tanh"), dict(dtype="bfloat16")),
-        "bench int8-static": (dict(dtype="bfloat16", quant="int8-static", gelu="tanh"),
-                              dict(dtype="bfloat16")),
-        "quant_conv + UNet int8": (dict(dtype="bfloat16", quant="int8", quant_conv="int8",
-                                        conv_dim=(128, 128, 128)), dict(quant="int8")),
         "fused_attention=False": (dict(dtype="bfloat16", fused_attention=False), {}),
     }
     g = torch.Generator().manual_seed(6)
     wav = torch.randn(2, 8000, generator=g) * 0.1
-    calib = torch.randn(4, 8000, generator=g) * 0.1
-    names = ("probs_clean", "probs_relevant", "probs_irrelevant")
-    for case, (emb, unet) in cases.items():
-        cfg = PipelineConfig(audio=AudioConfig(clip_seconds=0.5),
-                             embedder=dataclasses.replace(EmbedderConfig.tiny(), **emb),
-                             unet=UNetConfig(**tiny_unet, **unet))
-        plain = cfg.replace(embedder=dataclasses.replace(cfg.embedder, dtype="float32",
-                                                         quant="none", quant_conv="none"),
-                            unet=UNetConfig(**tiny_unet))
-        gpu = ADDvisorPipeline(cfg, device="cuda", seed=5)
-        pipes = [gpu, ADDvisorPipeline(cfg, device="cpu", seed=5),
-                 ADDvisorPipeline(plain, device="cpu", seed=5)]
-        for pipe in pipes[1:]:
-            pipe.encoder.load_state_dict(gpu.encoder.state_dict())
-            pipe.unet.load_state_dict(gpu.unet.state_dict())
-            pipe.logreg = {k: v.cpu() for k, v in gpu.logreg.items()}
-        if cfg.embedder.quant == "int8-static":
-            scales = gpu.calibrate_quant(calib.cuda(), batch_size=2)
-            pipes[1].quant_scales = {k: v.cpu() for k, v in scales.items()}
-        out_g, out_c, out_f = (p.explain(wav.cuda() if p is gpu else wav) for p in pipes)
+    for case, (emb, unet) in float_cases.items():
+        cfg, pipes = tiny_case_pipes(torch, emb, unet)
+        out_g, out_c, out_f = (p.explain(wav.cuda() if p is pipes[0] else wav) for p in pipes)
         torch.cuda.synchronize()
         print(f"tiny explain, {case}, card vs CPU:")
-        probs = [torch.cat([getattr(o, n).cpu() for n in names]) for o in (out_g, out_c, out_f)]
-        if cfg.embedder.quant != "none":
-            err, own = rel_l2(probs[0], probs[1]), rel_l2(probs[1], probs[2])
-            ok = err <= 0.1 * own
-            print(f"  probabilities: rel_l2 {err:.3e} (bar {0.1 * own:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"tiny explain {case}: probabilities disagree beyond the int8 bar")
-        else:
-            check_bf16_bars("probabilities", probs[0], probs[1], probs[2])
-        for key in ("mask", "relevant_wav", "irrelevant_wav"):
-            got, want = getattr(out_g, key).cpu(), getattr(out_c, key)
-            if cfg.unet.dtype == "float32" and cfg.unet.quant == "none":
-                check_close(f"{key}", got, want, 1e-5 if key == "mask" else 2e-4)
-            elif cfg.unet.quant != "none":
-                err, own = rel_l2(got, want), rel_l2(want, getattr(out_f, key))
-                ok = err <= 0.1 * own
-                print(f"  {key}: rel_l2 {err:.3e} (bar {0.1 * own:.3e}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"tiny explain {case}: {key} disagrees beyond the int8 bar")
-            else:
-                check_bf16_bars(key, got, want, getattr(out_f, key))
+        probs = [torch.cat([getattr(o, n).cpu() for n in PROB_KEYS]) for o in (out_g, out_c, out_f)]
+        check_bf16_bars("probabilities", probs[0], probs[1], probs[2])
+        for key in EXPLAIN_KEYS:
+            check_close(f"{key}", getattr(out_g, key).cpu(), getattr(out_c, key),
+                        1e-5 if key == "mask" else 2e-4)
 
 
 def frontend_bias_adds(torch, cfg) -> None:
@@ -3004,6 +3222,321 @@ def run_cli(torch, root: Path, wav_root: Path) -> dict:
     return walls
 
 
+def _bit_equal(torch, name: str, got, want) -> None:
+    """Every field of two ExplainOutputs (or two tensor lists) equal bit for
+    bit, or the run fails naming the first that is not."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            key = got._fields[i] if hasattr(got, "_fields") else i
+            fail(f"{name}: {key} differs from the plain run "
+                 f"(max |diff| {float((a.float() - b.float()).abs().max()):.3e})")
+
+
+def _timed(torch, fn, reps: int = 3) -> list:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _mesh_steps(torch, cfg, wavs, mesh):
+    """Training steps from a fresh seeded pipeline, plain (mesh None) or
+    through the rank's view and the mesh step -> (loss vectors, decoder
+    gradients after each step, the decoder's parameters after the last,
+    launches, ms per step)."""
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.parallel.inference import shard_pipeline_params
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    pipe = build_pipeline(torch, cfg)
+    view = pipe if mesh is None else shard_pipeline_params(pipe, mesh)
+    state, step = init_train_state(view), make_train_step(view, mesh=mesh)
+    losses, grads, times = [], [], []
+    _cuda.reset_launches()
+    for wav in wavs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, aux = step(state, wav)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(aux["loss_vec"].clone())
+        grads.append([p.grad.clone() for p in pipe.unet.parameters()])
+    launches = dict(_cuda.LAUNCHES)
+    params = [p.detach().clone() for p in pipe.unet.parameters()]
+    del pipe, view, state, step
+    torch.cuda.empty_cache()
+    return losses, grads, params, launches, times
+
+
+def _layer_tree(torch, layer) -> dict:
+    """One transformer layer's parameters in the JAX package's tree layout
+    (kernels [in, out], the head padding removed), on the card."""
+    from xai_audio_deepfakes_tpu_torch.models.wav2vec2 import HeadDense
+
+    out = {}
+    for name in ("attn_ln", "ffn_ln"):
+        ln = getattr(layer, name)
+        out[name] = {"scale": ln.weight.detach().clone(), "bias": ln.bias.detach().clone()}
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj", "ffn_in", "ffn_out"):
+        d = getattr(layer, name)
+        w, b = d.weight.detach(), d.bias.detach()
+        if isinstance(d, HeadDense):
+            if d.pad_axis == 1:
+                w = w.reshape(d.nh, d.hdp, -1)[:, :d.hd].reshape(d.nh * d.hd, -1)
+                b = b.reshape(d.nh, d.hdp)[:, :d.hd].reshape(-1)
+            else:
+                w = w.reshape(w.shape[0], d.nh, d.hdp)[:, :, :d.hd].reshape(w.shape[0], -1)
+        out[name] = {"kernel": w.t().contiguous(), "bias": b.contiguous()}
+    return out
+
+
+def _tp2_layer(torch, layer, x):
+    """One layer at tp=2 on one card: the two ranks' shards
+    (`EncoderLayer.tensor_parallel` with `megatron_splits`) run one after the
+    other, their row-split products (`Dense.partial`, f32) summed as the
+    all-reduce sums them, rounded, each bias added once -> (output, kernel
+    A's launches, a shard's heads, its q weight's shape)."""
+    import copy
+
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.parallel.sharding import megatron_splits
+
+    shards = []
+    for r in range(2):
+        shard = copy.deepcopy(layer, {id(p): p for p in layer.parameters()})
+        shard.tensor_parallel(r, 2, None, megatron_splits())
+        shards.append(shard)
+
+    def summed(parts):
+        return (parts[0] + parts[1]).to(layer.out_proj.weight.dtype)
+
+    _cuda.reset_launches()
+    parts = [s.out_proj.partial(s.attention_context(x)[0]) for s in shards]
+    x = x + (summed(parts) + layer.out_proj.bias)
+    parts = [s.ffn_out.partial(s.ffn_hidden(x)[0]) for s in shards]
+    out = x + (summed(parts) + layer.ffn_out.bias)
+    torch.cuda.synchronize()
+    return out, dict(_cuda.LAUNCHES)["attention"], shards[0].nh, shards[0].q_proj.weight.shape
+
+
+def run_parallel(torch, per_explain: dict) -> dict:
+    """The parallel layer at world size 1 over NCCL at full XLS-R width:
+    (a) the sharded explain at B=8 and (b) the pipelined explain (S = 1,
+    `pipelined_encoder_apply` as `features_fn`), each bit-equal to
+    `pipe.explain`; (c) two mesh training steps with the f32 UNet and with
+    the bf16 UNet, each bit-equal to the plain steps (losses, decoder
+    gradients, parameters); (d) the sharded sweep equal to the plain sweep;
+    (e) a `torch.distributed.checkpoint` round trip of the trained decoder
+    and of one layer's Megatron blocks, bit-equal with the same placements;
+    (f) one full-width layer at tp=2 (`_tp2_layer`) against the unsharded
+    layer, f32 at relative L2 1e-5, bf16 at the bf16 bars; (g) the 48-layer
+    explain at B=8 and one training step, with peak memory. Multi-GPU runs
+    are not exercised: one card. Returns {path: launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, MeshConfig, PipelineConfig, UNetConfig
+    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_explanation_metrics
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.parallel.inference import make_sharded_explain
+    from xai_audio_deepfakes_tpu_torch.parallel.mesh import make_mesh
+    from xai_audio_deepfakes_tpu_torch.parallel.pipeline import pipelined_encoder_apply
+    from xai_audio_deepfakes_tpu_torch.parallel.sharding import embedder_param_specs
+    from xai_audio_deepfakes_tpu_torch.train.checkpoints import (
+        load_sharded_checkpoint,
+        save_sharded_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(MeshConfig(), "cuda")
+    backend = dist.get_backend()
+    print(f"parallel phase: world {dist.get_world_size()} over {backend}, mesh {mesh.shape}")
+    if backend != "nccl" or dist.get_world_size() != 1:
+        fail(f"parallel phase: world {dist.get_world_size()} over {backend}, not 1 over nccl")
+    paths: dict = {}
+    cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", scan_layers=True))
+    pipe = build_pipeline(torch, cfg)
+    rng = np.random.default_rng(11)
+    wav = torch.from_numpy((rng.standard_normal((BATCH, cfg.audio.num_samples)) * 0.1)
+                           .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        want = pipe.explain(wav)
+        explain, sharded = make_sharded_explain(pipe, mesh)
+        _cuda.reset_launches()
+        got = explain(wav)
+        torch.cuda.synchronize()
+        paths["parallel_sharded_explain"] = dict(_cuda.LAUNCHES)
+        _bit_equal(torch, "(a) sharded explain", got, want)
+        print("  (a) sharded explain B=8: every output bit-equal to pipe.explain, launches "
+              f"{paths['parallel_sharded_explain']}")
+        sharded.features_fn = lambda enc, norm: pipelined_encoder_apply(cfg.embedder, enc, norm,
+                                                                         mesh)
+        _cuda.reset_launches()
+        got = explain(wav)
+        torch.cuda.synchronize()
+        paths["parallel_pipelined_explain"] = dict(_cuda.LAUNCHES)
+        _bit_equal(torch, "(b) pipelined explain", got, want)
+        print("  (b) pipelined explain S=1: every output bit-equal to pipe.explain, launches "
+              f"{paths['parallel_pipelined_explain']}")
+        for name in ("parallel_sharded_explain", "parallel_pipelined_explain"):
+            if paths[name] != per_explain:
+                fail(f"{name}: launch counts {paths[name]} != {per_explain}")
+        t_plain = _timed(torch, lambda: pipe.explain(wav))
+        t_pp = _timed(torch, lambda: explain(wav))
+        sharded.features_fn = None
+        t_dp = _timed(torch, lambda: explain(wav))
+    print(f"  explain B=8 (entry config, scan_layers), ms: plain {t_plain}, sharded {t_dp}, "
+          f"pipelined S=1 {t_pp}")
+
+    rng = np.random.default_rng(3)
+    batches = [(rng.standard_normal((BATCH, cfg.audio.num_samples)) * 0.1).astype(np.float32)
+               for _ in range(3)]
+    _cuda.reset_launches()
+    got_sweep = run_explanation_metrics(pipe, batches, mesh=mesh)
+    paths["parallel_sharded_sweep"] = dict(_cuda.LAUNCHES)
+    want_sweep = run_explanation_metrics(pipe, batches)
+    if got_sweep != want_sweep:
+        fail(f"(d) sharded sweep {got_sweep} != plain {want_sweep}")
+    print(f"  (d) sharded sweep, 3 batches of {BATCH}: equal to the plain sweep, "
+          f"{json.dumps(got_sweep)}, launches {paths['parallel_sharded_sweep']}")
+
+    # (f) one layer at tp=2 on one card, f32 and bf16
+    f32_cfg = PipelineConfig(embedder=EmbedderConfig(scan_layers=True))
+    f32_pipe = build_pipeline(torch, f32_cfg)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x32 = torch.randn(3 * BATCH, 249, cfg.embedder.hidden_size, device="cuda", generator=g)
+    with torch.inference_mode():
+        layer32, layer16 = f32_pipe.encoder.layers[0], pipe.encoder.layers[0]
+        want32 = layer32(x32)
+        got32, a32, nh, qshape = _tp2_layer(torch, layer32, x32)
+        err = rel_l2(got32, want32)
+        print(f"  (f) layer 0 at tp=2, f32: rel_l2 {err:.3e} (bar 1e-5), kernel A launches "
+              f"{a32} over the two shards, {nh} heads a shard, q {tuple(qshape)} "
+              f"{'ok' if err <= 1e-5 else 'FAIL'}")
+        if not err <= 1e-5:
+            fail("(f) the tp=2 layer in f32 disagrees with the unsharded layer")
+        with torch.no_grad():
+            for p16, p32 in zip(layer16.parameters(), layer32.parameters()):
+                p32.copy_(p16.float())
+        x16 = x32.to(torch.bfloat16)
+        want16, want_f32 = layer16(x16), layer32(x16.float())
+        got16, a16, _, _ = _tp2_layer(torch, layer16, x16)
+        check_bf16_bars("(f) layer 0 at tp=2, bf16", got16, want16, want_f32)
+    paths["parallel_tp2_layer"] = launches_of(a=a32 + a16)
+    del f32_pipe, layer32, x32, x16
+    torch.cuda.empty_cache()
+
+    # (c) mesh training against the plain steps, f32 and bf16 UNet
+    fused = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True,
+                                                   fused_conv=True, scan_layers=True))
+    rng = np.random.default_rng(4)
+    wavs = [(rng.standard_normal((2, cfg.audio.num_samples)) * 0.1).astype(np.float32)
+            for _ in range(2)]
+    trained = None
+    for unet_dtype in ("float32", "bfloat16"):
+        tcfg = fused.replace(unet=UNetConfig(dtype=unet_dtype))
+        plain = _mesh_steps(torch, tcfg, wavs, None)
+        meshed = _mesh_steps(torch, tcfg, wavs, mesh)
+        for i in range(len(wavs)):
+            if not torch.equal(plain[0][i], meshed[0][i]):
+                fail(f"(c) mesh step {i} ({unet_dtype} UNet): losses {meshed[0][i].tolist()} "
+                     f"!= plain {plain[0][i].tolist()}")
+            _bit_equal(torch, f"(c) mesh step {i} decoder gradients ({unet_dtype} UNet)",
+                       meshed[1][i], plain[1][i])
+        _bit_equal(torch, f"(c) decoder after the mesh steps ({unet_dtype} UNet)", meshed[2],
+                   plain[2])
+        want_steps = {k: len(wavs) * v for k, v in launches_of(a=27, b=1, c=2, d=3, e=18).items()}
+        if meshed[3] != want_steps or plain[3] != want_steps:
+            fail(f"(c) mesh training ({unet_dtype} UNet): launch counts {meshed[3]} (plain "
+                 f"{plain[3]}) != {want_steps}")
+        paths[f"parallel_mesh_train_{unet_dtype}"] = meshed[3]
+        print(f"  (c) mesh training, {len(wavs)} steps at 2 clips, {unet_dtype} UNet: losses, "
+              f"decoder gradients and parameters bit-equal to the plain steps; step ms mesh "
+              f"{[round(t, 1) for t in meshed[4]]}, plain {[round(t, 1) for t in plain[4]]}, "
+              f"launches {meshed[3]}")
+        trained = meshed[2]
+
+    # (e) DCP round trip: the trained decoder (replicated) and layer 0's
+    # Megatron blocks (placements from embedder_param_specs)
+    tree = {"decoder": {str(i): t for i, t in enumerate(trained)},
+            "layer_0": _layer_tree(torch, pipe.encoder.layers[0])}
+    specs = {"decoder": {str(i): () for i in range(len(trained))},
+             "layer_0": embedder_param_specs(tree["layer_0"], mesh.cfg)}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(build)) as d:
+        t0 = time.perf_counter()
+        save_sharded_checkpoint(d, tree, mesh, specs)
+        back = load_sharded_checkpoint(d, tree, mesh, specs)
+        seconds = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+    flat = [(k, n, tree[k][n], back[k][n]) for k in tree for n in tree[k]]
+    for k, n, a, b in flat:
+        inner = a if isinstance(a, dict) else {"": a}
+        outer = b if isinstance(b, dict) else {"": b}
+        for leaf in inner:
+            if not (outer[leaf].shape == inner[leaf].shape and torch.equal(outer[leaf],
+                                                                           inner[leaf])):
+                fail(f"(e) DCP round trip: {k}/{n}/{leaf} differs")
+    print(f"  (e) torch.distributed.checkpoint round trip of the trained decoder and layer 0's "
+          f"Megatron blocks: {len(flat)} entries bit-equal with their shapes, {nbytes / 2**20:.1f} "
+          f"MiB, {seconds:.2f} s")
+    del pipe, sharded, explain
+    torch.cuda.empty_cache()
+
+    # (g) the untruncated 48-layer XLS-R-2B
+    full = dataclasses.replace(EmbedderConfig.xls_r_2b_full(), output_layer=48, scan_layers=True)
+    gcfg = PipelineConfig(embedder=full)
+    pipe = build_pipeline(torch, gcfg)
+    n_params = sum(p.numel() for p in pipe.encoder.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        explain, _ = make_sharded_explain(pipe, mesh)
+        explain(wav)
+        _cuda.reset_launches()
+        ms = _timed(torch, lambda: explain(wav), reps=1)
+        paths["parallel_explain_48_layers"] = dict(_cuda.LAUNCHES)
+        ms += _timed(torch, lambda: explain(wav), reps=2)
+        out = explain(wav)
+    want48 = launches_of(a=48, b=1, c=2)
+    if paths["parallel_explain_48_layers"] != want48:
+        fail(f"(g) 48-layer explain: launch counts {paths['parallel_explain_48_layers']} != "
+             f"{want48}")
+    probs = torch.cat([out.probs_clean, out.probs_relevant, out.probs_irrelevant])
+    if not bool(torch.isfinite(probs).all()):
+        fail("(g) 48-layer explain: non-finite probabilities")
+    print(f"  (g) 48-layer explain B={BATCH} ({n_params / 1e9:.3f} B embedder parameters, bf16, "
+          f"remat): ms {[round(t, 1) for t in ms]}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    from xai_audio_deepfakes_tpu_torch.parallel.inference import shard_pipeline_params
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import init_train_state, make_train_step
+
+    view = shard_pipeline_params(pipe, mesh)
+    state, step = init_train_state(view), make_train_step(view, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t = _timed(torch, lambda: step(state, wavs[0]), reps=1)
+    paths["parallel_train_48_layers"] = dict(_cuda.LAUNCHES)
+    want48 = launches_of(a=3 * 48 + 2 * 48, b=1, c=2)
+    if paths["parallel_train_48_layers"] != want48:
+        fail(f"(g) 48-layer training step: launch counts {paths['parallel_train_48_layers']} != "
+             f"{want48}")
+    print(f"  (g) 48-layer training step at 2 clips (remat full, mesh): {t[0]:.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{paths['parallel_train_48_layers']}")
+    del pipe, view, state, step, explain
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3125,6 +3658,8 @@ def main() -> int:
     paths.update(run_closed_loop_reduced(torch, wav_root))
     torch.cuda.empty_cache()
     run_cli(torch, build / "cli_smoke", wav_root)
+    torch.cuda.empty_cache()
+    paths.update(run_parallel(torch, serving))
     torch.cuda.empty_cache()
     # after every full-width phase (ROADMAP Queue 3: a mask miss seen once there)
     run_tiny_reference(torch)

@@ -6,8 +6,8 @@ differences listed in DIFFERENCES); `explain`, `eval`, `embed` and
 twin tiny pipelines (same weights), held at the slice bars (mask 1e-5,
 waveforms 2e-4, probabilities 1e-4) and `train-detector` at the fit's bars
 (accuracy equal, EER 1e-6); every other subcommand as wiring; the
-refusals, the mesh flags' exit, the device rule and the missing-matplotlib
-path."""
+refusals, the mesh flags in a world of one, the device rule and the
+missing-matplotlib path."""
 
 import argparse
 import dataclasses
@@ -385,15 +385,44 @@ def test_unet_quant_warns_where_it_does_nothing(port_only, corpus, tmp_path, cap
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--metadata", "m", "--data-parallel", "2"],
-    ["eval", "--metadata", "m", "--model-parallel", "2"],
-    ["closed-loop", "--pipeline-stages", "2"],
+    ["train", "--batch-size", "2", "--epochs", "1", "--data-parallel"],
+    ["eval", "--model-parallel"],
+    ["closed-loop", "--n-train", "4", "--n-eval", "2", "--epochs", "1", "--batch-size", "2",
+     "--pipeline-stages"],
 ])
-def test_mesh_flags_exit_2(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code == 2
-    assert "Queue 1 item 11" in capsys.readouterr().err
+def test_mesh_flags_exit_2(argv, port_only, corpus, tmp_path, capsys):
+    """A mesh flag lays its mesh over the world of processes (torchrun's;
+    here a gloo world of this process alone): 2 ways exit with code 2,
+    naming the world, and 1 way runs the job and prints what the job
+    without the flag prints. The flags on 8 ranks:
+    tests/test_torch_parallel_train.py."""
+    import torch.distributed as dist
+
+    cmd, flag = argv[0], argv[-1]
+    data = [] if cmd == "closed-loop" else ["--metadata", str(corpus / "meta.csv"), "--root",
+                                            str(corpus)]
+
+    def job(name, extra):
+        out = [] if cmd == "eval" else ["--out", str(tmp_path / name)]
+        return [cmd] + data + argv[1:-1] + out + extra
+
+    try:
+        capsys.readouterr()
+        with pytest.raises(SystemExit) as e:
+            cli.main(job("two", [flag, "2"]))
+        assert e.value.code == 2
+        assert "world has 1" in capsys.readouterr().err
+        got, want = _run(cli.main, job("one", [flag, "1"]), capsys), _run(
+            cli.main, job("none", []), capsys)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert got.keys() == want.keys()
+    if cmd == "closed-loop":
+        assert got["detector"] == want["detector"]
+        assert [r["loss"] for r in got["train_log"]] == [r["loss"] for r in want["train_log"]]
+    else:
+        assert got == want
 
 
 def test_device_flag_and_no_fallback(monkeypatch, tmp_path):

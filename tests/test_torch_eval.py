@@ -255,11 +255,22 @@ def test_harnesses_match_jax(tiny_pipes):
 
 
 def test_harness_refusals(tiny_pipes):
-    """The sharded sweep raises, citing ROADMAP.md. (Attribution through the
-    int8 embedder runs: `test_int8_attributions_match_jax`.)"""
+    """The sharded sweep runs: in a gloo world of this process alone it
+    equals the plain sweep bit for bit, and there a mesh of two model ranks
+    is refused (its product is not the world size). On 8 ranks against
+    JAX: tests/test_torch_parallel.py. (Attribution through the int8
+    embedder runs: `test_int8_attributions_match_jax`.)"""
+    from tests.torch_parallel_cases import world_of_one
+    from xai_audio_deepfakes_tpu_torch.config import MeshConfig
+    from xai_audio_deepfakes_tpu_torch.parallel.mesh import make_mesh
+
     pipe, wav = tiny_pipes[3], tiny_pipes[5]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        run_explanation_metrics(pipe, [wav], mesh=object())
+    with world_of_one():
+        mesh = make_mesh(MeshConfig(), "cpu")
+        assert run_explanation_metrics(pipe, [wav], mesh=mesh) == run_explanation_metrics(
+            pipe, [wav])
+        with pytest.raises(ValueError, match="world has 1"):
+            make_mesh(MeshConfig(model_parallel=2), "cpu")
 
 
 # ---------------------------------------------------------------------------

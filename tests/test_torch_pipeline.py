@@ -138,7 +138,8 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|xai_audio_deepfakes_tpu|transformers|"
         r"safetensors|sklearn)(\.|\s|$)", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_explain.py",
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_diag.py",
+                                          ROOT / "profile_explain.py",
                                           ROOT / "closed_loop_protocol.py"]
     assert len(files) > 10
     for path in files:
@@ -290,14 +291,23 @@ def test_formulation_switches(jax_params, bf16_reference, fused_ln_gelu, precisi
 
 def test_unported_entry_points_raise():
     """Vocoding runs since it was ported (held against JAX in
-    tests/test_torch_vocoder.py): 256 samples a mel frame. What is still to
-    port is the parallel layer, and its entry points refuse: the sharded
-    sweep raises, citing ROADMAP.md."""
-    from xai_audio_deepfakes_tpu_torch.metrics.harness import run_explanation_metrics
+    tests/test_torch_vocoder.py): 256 samples a mel frame. The parallel
+    layer runs too: in a gloo world of this process alone the sharded
+    explain equals `pipe.explain` bit for bit, and a pipeline of two stages
+    is refused there (its product is not the world size). On 8 ranks
+    against JAX: tests/test_torch_parallel.py."""
+    from tests.torch_parallel_cases import world_of_one
+    from xai_audio_deepfakes_tpu_torch.parallel.inference import make_sharded_explain
+    from xai_audio_deepfakes_tpu_torch.parallel.mesh import make_mesh
 
     pipe = ADDvisorPipeline(_tiny(tc), device="cpu")
     wav = np.zeros((1, 8000), np.float32)
     voc = pipe.vocode(wav)
     assert voc.shape == (1, 256 * (1 + 8000 // 256)) and bool(torch.isfinite(voc).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        run_explanation_metrics(pipe, [wav], mesh=object())
+    wav = np.random.default_rng(2).standard_normal((2, 8000)).astype(np.float32) * 0.1
+    with world_of_one():
+        explain, _ = make_sharded_explain(pipe, make_mesh(tc.MeshConfig(), "cpu"))
+        for got, want in zip(explain(wav), pipe.explain(wav)):
+            assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="world has 1"):
+            make_mesh(tc.MeshConfig(), "cpu", pipeline_stages=2)

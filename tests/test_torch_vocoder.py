@@ -66,7 +66,10 @@ def test_configs_match_jax():
                       (TINY_HG, tiny_config().hifigan)):
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert [f.name for f in dataclasses.fields(tc.PipelineConfig)] == [
-        f.name for f in dataclasses.fields(jc.PipelineConfig) if f.name != "mesh"]
+        f.name for f in dataclasses.fields(jc.PipelineConfig)]
+    assert dataclasses.asdict(tc.MeshConfig()) == dataclasses.asdict(jc.MeshConfig())
+    assert dataclasses.asdict(tc.EmbedderConfig.xls_r_2b_full()) == dataclasses.asdict(
+        jc.EmbedderConfig.xls_r_2b_full())
 
 
 @pytest.mark.parametrize("key", [(16000, 1024, 80, 0.0, 8000.0), (22050, 1024, 80, 0.0, 8000.0),

@@ -14,9 +14,16 @@ flag, over the port's modules):
 The differences from the JAX CLI, and only these: the global `--platform`
 is `--device {cuda,cpu}` (default `$ADDVISOR_DEVICE`, else cuda; without a
 card, cuda raises, and nothing falls back to the CPU); `export --platforms`
-is gone (an artifact runs on the device it was exported for); a mesh flag
-other than 0 exits with code 2 (the parallel layer is not ported yet); and
-without matplotlib the PNGs are skipped, named once on stderr, and
+is gone (an artifact runs on the device it was exported for); the mesh
+flags of `train`, `eval` and `closed-loop` lay a (data, stage, model) mesh
+over the processes of a `torchrun` launch (NCCL on the card), whose
+product must be the world size, and rank 0 alone prints, the other ranks
+writing their files under `<out>/rank<r>`:
+
+  torchrun --nproc-per-node 4 -m xai_audio_deepfakes_tpu_torch.cli eval \
+      --metadata m.txt --root d --model-parallel 2 --batch-size 8
+
+and without matplotlib the PNGs are skipped, named once on stderr, and
 everything else is written.
 """
 
@@ -245,27 +252,56 @@ def _common(p: argparse.ArgumentParser):
 def _mesh_flags(p: argparse.ArgumentParser):
     p.add_argument(
         "--data-parallel", type=int, default=0, metavar="DP",
-        help="data-parallel ways (not ported yet: any value but 0 exits)",
+        help="shard over a dp x pp x tp mesh of the torchrun processes: the "
+             "batch over 'data' (0 = the world size / (pp x tp))",
     )
     p.add_argument(
         "--model-parallel", type=int, default=0, metavar="TP",
-        help="tensor-parallel ways (not ported yet: any value but 0 exits)",
+        help="tensor-parallel ways for the embedder within the mesh",
     )
     p.add_argument(
         "--pipeline-stages", type=int, default=0, metavar="PP",
-        help="pipeline-parallel stages (not ported yet: any value but 0 exits)",
+        help="pipeline-parallel stages for the embedder layer stack "
+             "(needs --scan-layers and output_layer %% PP == 0; composes "
+             "with --model-parallel into a dp x pp x tp mesh)",
     )
 
 
-def _refuse_mesh(args) -> None:
-    """The port runs on one device: a mesh flag exits with code 2."""
-    flags = [f"--{name.replace('_', '-')} {getattr(args, name)}"
-             for name in ("data_parallel", "model_parallel", "pipeline_stages")
-             if getattr(args, name, 0)]
-    if flags:
-        print(f"error: {', '.join(flags)}: the parallel layer is not ported yet "
-              "(ROADMAP.md Queue 1 item 11); run on one device", file=sys.stderr)
-        raise SystemExit(2)
+def _mesh_from_args(args):
+    """The (data, "stage", model) mesh the flags ask for over the world of
+    processes (torchrun's, or a world of one), or None when no flag is set.
+    A product other than the world size exits with code 2. On a rank other
+    than 0, stdout goes to the null device and `args.out` to
+    `<out>/rank<r>`, so that the ranks' files do not collide."""
+    dp, tp, pp = (getattr(args, name, 0) for name in
+                  ("data_parallel", "model_parallel", "pipeline_stages"))
+    if not (dp or tp or pp):
+        return None
+    import torch.distributed as dist
+
+    from xai_audio_deepfakes_tpu_torch.config import MeshConfig
+    from xai_audio_deepfakes_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        mesh = make_mesh(MeshConfig(model_parallel=tp or 1), device=args.device,
+                         pipeline_stages=pp or 1, data_parallel=dp)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2) from e
+    rank = dist.get_rank()
+    if rank and getattr(args, "out", None):
+        args.out = os.path.join(args.out, f"rank{rank}")
+        sys.stdout = open(os.devnull, "w")
+    return mesh
+
+
+def _mesh_batch(args, mesh) -> None:
+    """Every batch shards over data x stages (the pipeline's default
+    microbatches): the batch size must divide."""
+    need = mesh.size(mesh.cfg.data_axis) * mesh.size("stage")
+    if args.batch_size % need:
+        raise SystemExit(f"--batch-size {args.batch_size} must be a multiple of "
+                         f"data-parallel x stages = {need}")
 
 
 def _batches(args, paths, pipe=None, drop_remainder=False):
@@ -398,7 +434,9 @@ def cmd_train(args):
     from xai_audio_deepfakes_tpu_torch.utils.logging import JSONLLogger
 
     # fail fast on bad flags BEFORE the expensive model build
-    _refuse_mesh(args)
+    mesh = _mesh_from_args(args)
+    if mesh is not None:
+        _mesh_batch(args, mesh)
     pipe = _build_pipeline(args)
     paths = extract_wavs(args.metadata)
     if args.limit:
@@ -440,8 +478,10 @@ def cmd_train(args):
 
     state = train_addvisor(
         pipe,
-        batches=lambda: _batches(args, paths, pipe),
+        # mesh batches keep the shardable shape: the tail is dropped
+        batches=lambda: _batches(args, paths, pipe, drop_remainder=mesh is not None),
         num_epochs=args.epochs,
+        mesh=mesh,
         log_fn=logger,
         artifact_fn=artifact_fn,
         checkpoint_fn=checkpoint_fn,
@@ -462,14 +502,21 @@ def cmd_eval(args):
     from xai_audio_deepfakes_tpu_torch.metrics.harness import run_explanation_metrics
 
     # fail fast on bad flags/paths BEFORE the expensive model build
-    _refuse_mesh(args)
+    mesh = _mesh_from_args(args)
     paths = extract_wavs(args.metadata)
     if args.limit:
         paths = paths[: args.limit]
     pipe = _build_pipeline(args)
+    drop = False
+    if mesh is not None:
+        _mesh_batch(args, mesh)
+        if len(paths) % args.batch_size:
+            drop = True  # a ragged tail cannot shard over 'data'
+            print(f"note: dropping {len(paths) % args.batch_size} tail clip(s) so every "
+                  f"batch shards dp={mesh.size(mesh.cfg.data_axis)}", file=sys.stderr)
     result = run_explanation_metrics(
-        pipe, _batches(args, paths, pipe),
-        decoder=args.decoder, masking=MaskingConvention(args.masking),
+        pipe, _batches(args, paths, pipe, drop_remainder=drop),
+        decoder=args.decoder, masking=MaskingConvention(args.masking), mesh=mesh,
     )
     print(json.dumps(result))
 
@@ -687,7 +734,7 @@ def cmd_closed_loop(args):
     from xai_audio_deepfakes_tpu_torch.train.closed_loop import run_closed_loop
     from xai_audio_deepfakes_tpu_torch.utils.logging import JSONLLogger
 
-    _refuse_mesh(args)
+    mesh = _mesh_from_args(args)
     cfg = PipelineConfig(
         stft=STFTConfig(use_pallas=args.stft_pallas),
         embedder=EmbedderConfig(
@@ -717,7 +764,7 @@ def cmd_closed_loop(args):
         log_fn=logger, keep_wavs=n_wavs, anyband=args.anyband,
         band_width=args.band_width, decoder=args.decoder,
         l1_scale=args.l1_scale, l1_warmup_epochs=args.l1_warmup_epochs,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
     eval_bands = res.get("eval_bands_hz")
     masks, mags = res.pop("final_masks"), res.pop("final_magnitude")

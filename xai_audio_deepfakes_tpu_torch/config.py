@@ -5,8 +5,8 @@ a configuration reads the same on both sides. The port keeps its own copies
 (it imports nothing of the JAX package). `PipelineConfig` carries the
 sub-configs of the explanation path (`explain`, with the UNet or the
 feature decoder), of LMAC training of either decoder (`loss`, `train`) and
-of the vocoder path (`mel`, `hifigan`); the mesh config arrives with the
-parallel layer (ROADMAP.md, Queue 1 item 11).
+of the vocoder path (`mel`, `hifigan`), and the device mesh of the parallel
+layer (`mesh`, `parallel/`).
 
 The JAX package's implementation switches select formulations, and the
 port runs each formulation it accepts with the same cast points: its
@@ -184,6 +184,14 @@ class EmbedderConfig:
     gelu: str = "exact"  # "exact" | "tanh"
 
     @staticmethod
+    def xls_r_2b_full() -> "EmbedderConfig":
+        """Untruncated facebook/wav2vec2-xls-r-2b: 48 layers, remat, bf16.
+        The hidden_states[9] readout needs only the truncated default; this
+        preset serves full-model studies (2.2 B parameters, 4.4 GB in bf16,
+        which one H100 holds unsharded)."""
+        return EmbedderConfig(num_layers=48, remat=True, dtype="bfloat16")
+
+    @staticmethod
     def tiny() -> "EmbedderConfig":
         return EmbedderConfig(
             hidden_size=32,
@@ -288,6 +296,17 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh of the parallel layer (`parallel/mesh.py`): the batch
+    over `data_axis`, the embedder's Megatron split over `model_axis` with
+    `model_parallel` ways; the pipeline's stage axis is "stage"."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     audio: AudioConfig = AudioConfig()
     stft: STFTConfig = STFTConfig()
@@ -298,6 +317,7 @@ class PipelineConfig:
     hifigan: HiFiGANConfig = HiFiGANConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()  # as the JAX package's; a built mesh reads only `Mesh.cfg`
     masking: MaskingConvention = MaskingConvention.LOG1P
     polarity: LabelPolarity = LabelPolarity.MANIPULATED_IS_ONE
 

@@ -53,14 +53,22 @@ def run_explanation_metrics(
     mesh=None,
 ) -> dict:
     """The LMAC faithfulness sweep over `batches` (wav arrays [B, L]) ->
-    the `merge_summaries` dict."""
+    the `merge_summaries` dict. With `mesh` (`parallel/mesh.py::make_mesh`)
+    the sweep runs sharded (`parallel/inference.py::make_sharded_explain`):
+    every rank passes the same batches, explains its data shard, and folds
+    the gathered probabilities; batch sizes must divide by the data axis's
+    size."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded sweep (mesh=) is not ported yet (ROADMAP.md Queue 1 item 11)")
+        from xai_audio_deepfakes_tpu_torch.parallel.inference import make_sharded_explain
+
+        explain, _ = make_sharded_explain(pipe, mesh, decoder=decoder, masking=masking)
+    else:
+        def explain(wav):
+            return pipe.explain(wav, decoder=decoder, masking=masking)
     partials = []
     with torch.inference_mode():
         for wav in batches:
-            out = pipe.explain(wav, decoder=decoder, masking=masking)
+            out = explain(wav)
             partials.append(summarize_sums(out.probs_clean, out.probs_relevant,
                                            out.probs_irrelevant))
     result = merge_summaries(partials)

@@ -85,8 +85,12 @@ def summarize(predictions: torch.Tensor, theta_out: torch.Tensor,
 def summarize_sums(predictions: torch.Tensor, theta_out: torch.Tensor,
                    masked_predictions: torch.Tensor) -> tuple[torch.Tensor, int]:
     """One batch's partial: (sums [5] in METRIC_KEYS order, on the device;
-    the clip count). Fold partials with `merge_summaries`."""
-    sums = torch.stack([v.sum() for v in _per_clip(predictions, theta_out, masked_predictions)])
+    the clip count). Fold partials with `merge_summaries`. The per-clip
+    metrics are taken in f64 from the f32 probabilities: near 0 or 1, the
+    f32 `1 - pc` and `oc - pc` keep few digits (AG of probabilities near
+    0.004 lost 7.5e-5 of itself), and the fold is in f64 anyway."""
+    sums = torch.stack([v.sum() for v in _per_clip(
+        *(t.double() for t in (predictions, theta_out, masked_predictions)))])
     return sums, int(_squeeze(predictions).shape[0])
 
 

@@ -30,6 +30,7 @@ from torch import nn
 
 from xai_audio_deepfakes_tpu_torch.config import HiFiGANConfig
 from xai_audio_deepfakes_tpu_torch.device import torch_dtype
+from xai_audio_deepfakes_tpu_torch.models.init import lecun_normal_
 
 
 class Conv1d(nn.Conv1d):
@@ -115,16 +116,17 @@ class HiFiGANGenerator(nn.Module):
 
 
 def init_hifigan_(model: HiFiGANGenerator, generator: torch.Generator) -> HiFiGANGenerator:
-    """Random weights from `generator`: conv weights ~ N(0, 1/fan_in), zero
-    biases (fan_in = input channels x kernel taps, a transposed conv's too)."""
+    """Random weights from `generator`: conv weights lecun_normal
+    (`models/init.py`) at flax's fan_in, zero biases: input channels x taps
+    for a conv, output channels x taps for a transposed conv (flax's kernel
+    with `transpose_kernel=True` is [k, out, in])."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.ConvTranspose1d):
-                m.weight.normal_(0.0, (m.in_channels * m.kernel_size[0]) ** -0.5,
-                                 generator=generator)
+                lecun_normal_(m.weight, m.out_channels * m.kernel_size[0], generator)
                 m.bias.zero_()
             elif isinstance(m, nn.Conv1d):
-                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 m.bias.zero_()
     return model
 

@@ -8,8 +8,9 @@ with `load_state_dict` once a DDP `module.` prefix is stripped
 a dilated 16c bottleneck (d=2, then d=4), transposed-conv decoder with skip
 concats, 1x1 conv and a sigmoid. BatchNorm uses eps 1e-5 and, for training,
 momentum 0.01 (flax's 0.99 in torch's convention); in training mode
-(`model.train()`) it normalises with the batch statistics and updates the
-running ones as flax's `nn.BatchNorm` does (`BatchNorm2d` below).
+(`model.train()`) it normalises with flax's batch statistics, over every
+rank's batch under a data axis, and updates the running ones as flax's
+`nn.BatchNorm` does (`BatchNorm2d` below).
 
 Cast points (`models/unet.py` of the JAX package), with `UNetConfig.dtype`
 as the compute dtype: each conv and transposed conv rounds its bias-free
@@ -32,32 +33,64 @@ from torch import nn
 
 from xai_audio_deepfakes_tpu_torch.config import UNetConfig
 from xai_audio_deepfakes_tpu_torch.device import torch_dtype
+from xai_audio_deepfakes_tpu_torch.models.init import lecun_normal_
 from xai_audio_deepfakes_tpu_torch.ops.quant import derived, int8_conv2d, quantize_weight
+from xai_audio_deepfakes_tpu_torch.parallel.mesh import all_reduce_sum
 
 _BN = dict(eps=1e-5, momentum=0.01)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d whose running variance follows the BIASED batch
-    variance, as flax's `nn.BatchNorm` keeps it. torch folds the unbiased
-    estimate, n / (n - 1) times larger with n = B * H * W values per channel,
-    into `running_var`; here that update lands in scratch copies (which the
-    backward pass keeps) and is rescaled on its way into the buffers. The
-    normalisation itself uses the biased variance in both frameworks."""
+    """flax's `nn.BatchNorm` (f32, `use_fast_variance`, the default).
+
+    In training mode (`model.train()`) it takes, per channel, the sums of x
+    and of x^2 and the count n over its batch and, when `group` is a process
+    group of more than one rank, all-reduces the three
+    (`parallel/mesh.py::all_reduce_sum`), so that every rank normalises with
+    the statistics of the whole batch, as flax's do under a data axis. Then
+    mean = sum x / n, var = max(sum x^2 / n - mean^2, 0), both cast to f32,
+    and y = (x - mean) * (rsqrt(var + eps) * weight) + bias, by plain
+    autograd ops. The sums accumulate in f64 over f32 x and x^2, and the
+    subtraction runs in f64: in f32, E[x^2] - E[x]^2 loses the digits that
+    |mean| / std cancels, and those rounding errors, different in every
+    framework's summation order, grew through training into a deviation
+    from the JAX package's steps that the f32 centred variance did not
+    have; the f32 squares' own rounding (2^-24 relative) is far below that
+    cancellation. No f64 tensor is kept for the backward pass: it saves the
+    f32 x. The running statistics move by flax's momentum (0.99 kept, torch's
+    `momentum` 0.01 taken), the variance biased, as flax keeps it. Without a
+    group, or with one of one rank, it is the same code. In eval mode it
+    normalises with the running statistics (`F.batch_norm`)."""
+
+    group = None  # the data axis's process group, set by the mesh trainer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()  # flax nn.BatchNorm(dtype=f32)
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        mean, var = self.running_mean.clone(), self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
-        n = x.numel() // x.shape[1]
+        dims, f64 = (0, 2, 3), torch.float64
+        n = torch.full_like(x[0, :, 0, 0], x.numel() // x.shape[1], dtype=f64)
+        sums = all_reduce_sum(torch.stack([x.sum(dim=dims, dtype=f64),
+                                           (x * x).sum(dim=dims, dtype=f64), n]), self.group)
+        mean = sums[0] / sums[2]
+        var = torch.clamp_min(sums[1] / sums[2] - mean * mean, 0.0).float()
+        mean = mean.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         with torch.no_grad():
-            kept = self.running_var * (1.0 - self.momentum)
-            self.running_mean.copy_(mean)
-            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+            m = self.momentum
+            self.running_mean.copy_(self.running_mean * (1.0 - m) + mean * m)
+            self.running_var.copy_(self.running_var * (1.0 - m) + var * m)
             self.num_batches_tracked += 1
         return y
+
+
+def set_batch_stats_group(model: nn.Module, group) -> None:
+    """Every `BatchNorm2d` of `model` takes its training statistics over
+    `group` (None: its own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 class Conv2d(nn.Conv2d):
@@ -163,13 +196,14 @@ class UNetMaskDecoder(nn.Module):
 
 
 def init_unet_(model: UNetMaskDecoder, generator: torch.Generator) -> UNetMaskDecoder:
-    """Random weights from `generator`: conv weights ~ N(0, 1/fan_in), zero
-    biases; BatchNorm stays at identity (scale 1, shift 0, stats 0 and 1)."""
+    """Random weights from `generator`: conv weights lecun_normal
+    (`models/init.py`; fan_in = in x kh x kw, a transposed conv's too, as
+    flax's kernel [kh, kw, in, out] gives it), zero biases; BatchNorm stays
+    at identity (scale 1, shift 0, stats 0 and 1)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in = m.in_channels * m.weight[0, 0].numel()
-                m.weight.normal_(0.0, fan_in**-0.5, generator=generator)
+                lecun_normal_(m.weight, m.in_channels * m.weight[0, 0].numel(), generator)
                 m.bias.zero_()
     return model
 

@@ -82,6 +82,7 @@ from torch.utils.checkpoint import (
 
 from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig
 from xai_audio_deepfakes_tpu_torch.device import torch_dtype
+from xai_audio_deepfakes_tpu_torch.models.init import lecun_normal_
 from xai_audio_deepfakes_tpu_torch.ops.attention import (
     attention,
     attention_reference,
@@ -99,10 +100,15 @@ from xai_audio_deepfakes_tpu_torch.ops.quant import (
     int8_conv1d,
     int8_conv1d_q,
     int8_linear,
+    per_127,
+    quant_hook_off,
+    quantize_scaled,
     quantize_symmetric,
     quantize_weight,
     quantize_with_scale,
+    rescale,
 )
+from xai_audio_deepfakes_tpu_torch.parallel.mesh import copy_to_group, reduce_from_group
 
 
 def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -138,8 +144,7 @@ def _conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
 
 
 def _init_dense_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    with torch.no_grad():
-        weight.normal_(0.0, fan_in**-0.5, generator=generator)
+    lecun_normal_(weight, fan_in, generator)
 
 
 class _LNParams(nn.Module):
@@ -242,6 +247,12 @@ class Dense(nn.Module):
             self.weight.copy_(weight)
             self.bias.copy_(bias)
 
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-split shard's bias-free product, in f32: the shards' sum is
+        rounded to the weight's dtype once, after the all-reduce, as the
+        unsharded product is."""
+        return F.linear(x.to(self.weight.dtype).float(), self.weight.float())
+
     def forward(self, x: torch.Tensor, site=None) -> torch.Tensor:
         if not self.quant:
             return _dense(x, self.weight, self.bias)
@@ -270,8 +281,14 @@ def _quantize_floor_first(x: torch.Tensor, dim) -> tuple[torch.Tensor, torch.Ten
     """`_Int8GroupedConv`'s quantization: s = max(max|x|, 1e-12) / 127 (the
     floor before the division, unlike `quantize_symmetric`)."""
     x = x.float()
-    scale = torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), 1e-12) / 127.0
-    return quantize_with_scale(x, scale), scale
+    return quantize_scaled(x, per_127(torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), 1e-12)))
+
+
+def _quantize_weight_floor_first(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_quantize_floor_first` of a conv weight per output channel, not
+    observed by the int8 hook (`ops/quant.py`), as `quantize_weight` is not."""
+    with quant_hook_off():
+        return _quantize_floor_first(w, (1, 2))
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -296,9 +313,9 @@ class PositionalConvEmbedding(nn.Module):
     def _int8(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H] -> [B, T', H]
         conv = self.conv
         xq, sx = _quantize_floor_first(x, dim=(1, 2))  # sx [B, 1, 1]
-        wq, sw = derived(self, "wq", lambda w: _quantize_floor_first(w, (1, 2)), conv.weight)
+        wq, sw = derived(self, "wq", _quantize_weight_floor_first, conv.weight)
         acc = int8_conv1d_q(xq.transpose(1, 2), wq, 1, conv.padding[0], conv.groups)
-        return (acc.float() * (sx * sw.reshape(-1)) + conv.bias).to(x.dtype)
+        return (rescale(acc, sx, sw.reshape(-1)) + conv.bias).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H] -> [B, T, H]
         if self.quant:
@@ -370,7 +387,19 @@ class EncoderLayer(nn.Module):
     scales (`quant="int8-static"`); `collect_absmax` also returns
     {site: [2, C_site]} (`_absmax_stats`) for calibration. The `ctx` site is
     NH * 128 wide with `fused_attention` (the head-padded context) and H wide
-    without."""
+    without.
+
+    After `tensor_parallel(...)` the layer holds one rank's Megatron block and
+    its process group (`tp_group`, on the module): its heads of q/k/v and the
+    matching columns of out_proj, its columns of the FFN. The LayerNorm
+    outputs enter the column-split products through `copy_to_group` (their
+    gradient summed over the group), and each row-split product is taken in
+    f32 (`Dense.partial`), summed over the group in f32
+    (`reduce_from_group`), rounded to the compute dtype and its bias added,
+    once. Without a group the layer computes exactly the unsharded
+    products."""
+
+    tp_group = None
 
     def __init__(self, cfg: EmbedderConfig, generator, device):
         super().__init__()
@@ -411,8 +440,15 @@ class EncoderLayer(nn.Module):
                 return quantize_with_scale(t, s), None, s
             return (*quantize_symmetric(t, dim=-1), None)
 
-        eps = cfg.layer_norm_eps
-        y = self.attn_ln(x, eps)
+        x = x + self._row_split(self.out_proj, *self.attention_context(x, site))
+        out = x + self._row_split(self.ffn_out, *self.ffn_hidden(x, site))
+        return (out, absmax) if collect_absmax else out
+
+    def attention_context(self, x: torch.Tensor, site=lambda t, name: None):
+        """LN -> q/k/v -> attention: (the context out_proj takes, its int8
+        site)."""
+        cfg, nh, hd = self.cfg, self.nh, self.hd
+        y = copy_to_group(self.attn_ln(x, cfg.layer_norm_eps), self.tp_group)
         qkv = site(y, "qkv")
         q = self.q_proj(y, qkv) * self.q_scale
         k, v = self.k_proj(y, qkv), self.v_proj(y, qkv)
@@ -422,11 +458,39 @@ class EncoderLayer(nn.Module):
             b, t = q.shape[:2]
             heads = lambda z: z.reshape(b, t, nh, hd)  # noqa: E731
             ctx = attention_reference(heads(q), heads(k), heads(v)).reshape(b, t, nh * hd)
-        x = x + self.out_proj(ctx, site(ctx, "ctx"))
-        y = self.ffn_ln(x, eps)
-        y = _gelu(self.ffn_in(y, site(y, "ffn_in")), cfg.gelu)
-        out = x + self.ffn_out(y, site(y, "ffn_out"))
-        return (out, absmax) if collect_absmax else out
+        return ctx, site(ctx, "ctx")
+
+    def ffn_hidden(self, x: torch.Tensor, site=lambda t, name: None):
+        """LN -> ffn_in -> GELU: (the hidden ffn_out takes, its int8 site)."""
+        y = copy_to_group(self.ffn_ln(x, self.cfg.layer_norm_eps), self.tp_group)
+        y = _gelu(self.ffn_in(y, site(y, "ffn_in")), self.cfg.gelu)
+        return y, site(y, "ffn_out")
+
+    def _row_split(self, dense: Dense, t: torch.Tensor, site) -> torch.Tensor:
+        if self.tp_group is None:
+            return dense(t, site)
+        return reduce_from_group(dense.partial(t), self.tp_group).to(dense.weight.dtype) + dense.bias
+
+    def tensor_parallel(self, index: int, size: int, group, splits: dict) -> None:
+        """Keep block `index` of `size` of each projection, in place:
+        `splits` maps each projection's name to (the weight dim it splits or
+        None, the bias dim or None), `parallel/sharding.py`'s specs in torch
+        layout; then run with the all-reduces over `group`. The head count
+        becomes this rank's. New parameters replace the split ones, so a
+        module that shares the old ones keeps them whole."""
+        from xai_audio_deepfakes_tpu_torch.parallel.sharding import _block
+
+        for name, (wdim, bdim) in splits.items():
+            dense = getattr(self, name)
+            for attr, dim in (("weight", wdim), ("bias", bdim)):
+                if dim is not None:
+                    p = getattr(dense, attr)
+                    setattr(dense, attr, nn.Parameter(_block(p.detach(), dim, index, size).clone(),
+                                                      requires_grad=p.requires_grad))
+            if isinstance(dense, HeadDense):
+                dense.nh //= size
+        self.nh //= size
+        self.tp_group = group
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -445,6 +509,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
 class Wav2Vec2Encoder(nn.Module):
     """normalised waveform [B, L] -> features [B, T, H] f32
     (== HF hidden_states[output_layer])."""
+
+    stage = None  # (index, count) of a pipeline stage's view (`parallel/sharding.py`)
 
     def __init__(self, cfg: EmbedderConfig, generator: torch.Generator, device):
         super().__init__()
@@ -470,6 +536,7 @@ class Wav2Vec2Encoder(nn.Module):
         target pass (`TrainConfig.target_gelu`, `target_quant`). No weight is
         copied; the int8 images are kept on the second module."""
         shared = {id(p): p for p in self.parameters()}
+        shared.update({id(layer.tp_group): layer.tp_group for layer in self.layers})
         view = copy.deepcopy(self, shared)
         cfg = dataclasses.replace(self.cfg, gelu=gelu, quant=quant)
         q = quant != "none"
@@ -493,6 +560,9 @@ class Wav2Vec2Encoder(nn.Module):
         of `_absmax_stats`."""
         if act_scales is not None and self.cfg.quant != "int8-static":
             raise ValueError("act_scales only applies with quant='int8-static'")
+        if self.stage is not None:
+            raise ValueError("this encoder holds one pipeline stage's layers: run it with "
+                             "parallel.pipeline.pipelined_encoder_apply")
         x = self.feature_projection(self.feature_encoder(wav))
         x = x + self.pos_conv(x)
         remat = self.cfg.remat and torch.is_grad_enabled() and x.requires_grad

@@ -9,6 +9,15 @@ Scheme, as in the JAX package:
     round half to even (`torch.round`, as `jnp.round`);
   * y = acc * (s_x * s_w), with acc the exact int32 sum of int8 products.
 
+`set_int8_hook(hook)` lets a check observe every activation quantization,
+int32 product and rescale (`hook(kind, inputs, outputs) -> outputs`, kinds
+"quantize_symmetric" with inputs (x f32, dim), "quantize_with_scale" with
+(x f32, scale), both with outputs (q, scale); "int_mm" with (a, b) -> acc;
+"rescale" with (acc, sx, sw) -> y) and replace what a call returns: record a
+run's int8 codes, replay them elsewhere, or pin another run to them. Weight
+quantization (`quantize_weight`) is not observed: it is exact and cached.
+The hook is off (None) unless a check sets it, and costs one branch a call.
+
 The layouts are the port's: a Linear weight is [N, K], a conv1d weight
 [Cout, Cin, k], a conv2d weight [Cout, Cin, kh, kw], activations of a conv
 [B, C, L] and [B, C, H, W]. The convolutions form their int8 patches
@@ -25,22 +34,72 @@ the products would round.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 _FLOOR = 1e-12
+_HOOK = None
+
+
+def set_int8_hook(hook):
+    """Install `hook` (None: off); returns the hook it replaces."""
+    global _HOOK
+    before, _HOOK = _HOOK, hook
+    return before
+
+
+@contextlib.contextmanager
+def quant_hook_off():
+    """No hook inside the block; the one installed is restored after it."""
+    before = set_int8_hook(None)
+    try:
+        yield
+    finally:
+        set_int8_hook(before)
+
+
+def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int8)
+
+
+def per_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127, divided element by element. A CUDA tensor divided by a
+    Python number is multiplied by the number's reciprocal instead, which
+    rounds differently from the CPU's (and XLA's) division: a scale one ulp
+    off moves every code it divides."""
+    return t / torch.full_like(t, 127.0)
+
+
+def _symmetric_scale(x: torch.Tensor, dim) -> torch.Tensor:
+    return torch.clamp_min(per_127(x.abs().amax(dim=dim, keepdim=True)), _FLOOR)
 
 
 def quantize_symmetric(x: torch.Tensor, dim) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (int8 values, f32 scale that keeps the reduced dims with size 1)."""
     x = x.float()
-    scale = torch.clamp_min(x.abs().amax(dim=dim, keepdim=True) / 127.0, _FLOOR)
-    return quantize_with_scale(x, scale), scale
+    scale = _symmetric_scale(x, dim)
+    out = (_quantize(x, scale), scale)
+    return out if _HOOK is None else _HOOK("quantize_symmetric", (x, dim), out)
+
+
+def quantize_scaled(x: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (round(x / scale) clipped to +-127 as int8, scale)."""
+    x = x.float()
+    out = (_quantize(x, scale), scale)
+    return out if _HOOK is None else _HOOK("quantize_with_scale", (x, scale), out)
 
 
 def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """round(x / scale) clipped to +-127, as int8."""
-    return torch.clamp(torch.round(x.float() / scale), -127.0, 127.0).to(torch.int8)
+    return quantize_scaled(x, scale)[0]
+
+
+def rescale(acc: torch.Tensor, sx, sw: torch.Tensor) -> torch.Tensor:
+    """The int32 sums back to f32: acc * (sx * sw)."""
+    y = acc.float() * (sx * sw)
+    return y if _HOOK is None else _HOOK("rescale", (acc, sx, sw), y)
 
 
 def derived(module: torch.nn.Module, name: str, fn, *deps: torch.Tensor):
@@ -83,15 +142,16 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if (np_, kp) != (n, k):
         b = F.pad(b, (0, kp - k, 0, np_ - n))
     # b^T in column-major order: the int8 product's preferred operand layout
-    out = torch._int_mm(a.contiguous(), b.contiguous().t())
-    return out[:m, :n]
+    out = torch._int_mm(a.contiguous(), b.contiguous().t())[:m, :n]
+    return out if _HOOK is None else _HOOK("int_mm", (a[:m, :k], b[:n, :k]), out)
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel quantization of a weight whose dim 0 is the output
     channel -> (int8 [N, ...], f32 scales [N])."""
-    wq, sw = quantize_symmetric(w, dim=tuple(range(1, w.ndim)))
-    return wq, sw.reshape(-1)
+    w = w.float()
+    sw = _symmetric_scale(w, tuple(range(1, w.ndim)))
+    return _quantize(w, sw), sw.reshape(-1)
 
 
 def int8_linear(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
@@ -100,7 +160,7 @@ def int8_linear(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     scales already folded into the weight) times a quantized weight
     (wq int8 [N, K], sw f32 [N]) -> f32 [..., N] = acc * (sx * sw)."""
     acc = int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*xq.shape[:-1], wq.shape[0])
-    return acc.float() * (sx * sw)
+    return rescale(acc, sx, sw)
 
 
 def int8_matmul_prequant(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -164,7 +224,7 @@ def int8_conv1d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     xq, sx = quantize_symmetric(x, dim=(1, 2))  # sx [B, 1, 1]
     wq, sw = quantize_weight(weight) if quantized is None else quantized
     acc = int8_conv1d_q(xq, wq, stride, padding)
-    return acc.float() * (sx * sw)
+    return rescale(acc, sx, sw)
 
 
 def int8_conv2d_q(xq: torch.Tensor, wq: torch.Tensor, stride=(1, 1), padding=(0, 0),
@@ -190,4 +250,4 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1), padding=(0
     Serving only."""
     xq, sx = quantize_symmetric(x, dim=(1, 2, 3))  # sx [B, 1, 1, 1]
     wq, sw = quantize_weight(weight) if quantized is None else quantized
-    return int8_conv2d_q(xq, wq, stride, padding, dilation).float() * (sx * sw)
+    return rescale(int8_conv2d_q(xq, wq, stride, padding, dilation), sx, sw)

@@ -52,6 +52,7 @@ from xai_audio_deepfakes_tpu_torch.ops.masking import (
 )
 from xai_audio_deepfakes_tpu_torch.ops.mel import mel_spectrogram
 from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
+from xai_audio_deepfakes_tpu_torch.ops.quant import per_127
 
 
 class ExplainOutput(NamedTuple):
@@ -91,6 +92,10 @@ class ADDvisorPipeline:
         self.logreg = logreg_init(cfg.embedder.hidden_size, gen, self.device)
         self.feat_decoder = FeatureMaskDecoder(cfg.feat_decoder, gen, self.device).eval()
         self.quant_scales: dict | None = None
+        # an embedder forward in place of the encoder's own: (encoder,
+        # normalised wav [B, L]) -> features [B, T, H]; the parallel layer's
+        # pipelined encoder (`parallel/inference.py`)
+        self.features_fn = None
         self._gen, self._hifigan = gen, None
 
     @property
@@ -111,6 +116,8 @@ class ADDvisorPipeline:
         """wav [B, L] on the device -> features [B, T, H] f32 (normalise,
         then embed), carrying a gradient to wav when it asks for one."""
         encoder = self.encoder if encoder is None else encoder
+        if self.features_fn is not None:
+            return self.features_fn(encoder, zero_mean_unit_var_norm(wav))
         static = self.cfg.embedder.quant == "int8-static"
         return encoder(zero_mean_unit_var_norm(wav),
                        act_scales=self.quant_scales if static else None)
@@ -138,7 +145,7 @@ class ADDvisorPipeline:
         for i in range(0, n - bs + 1, bs):
             _, m = self.encoder(zero_mean_unit_var_norm(wavs[i:i + bs]), calibrate=True)
             absmax = m if absmax is None else {k: torch.maximum(absmax[k], m[k]) for k in m}
-        self.quant_scales = {k: a[:, idx] / 127.0 for k, a in absmax.items()}
+        self.quant_scales = {k: per_127(a[:, idx]) for k, a in absmax.items()}
         return self.quant_scales
 
     def stft_stage(self, wav: torch.Tensor):

@@ -8,6 +8,13 @@ keep the reference's epoch+loss encoding, `addvisor_epoch_{n}_loss_{x:.4f}.pt`.
 Files are read back with `weights_only=True`, so loading runs no pickled
 code.
 
+A sharded state (the rank's blocks of a parameter tree under a mesh,
+`parallel/sharding.py`) goes through `torch.distributed.checkpoint`
+instead (`save_sharded_checkpoint` / `load_sharded_checkpoint`, one
+directory written by every rank): each block is described as a `DTensor`
+of the spec's placements, so the directory holds each global tensor once
+and a load gives every rank its block back.
+
 `save_checkpoint(..., async_save=True)` copies the state to the host before
 it returns and leaves the write (`torch.save` to a `.tmp` file, then
 `os.replace`) to one worker thread, so the file system overlaps the next
@@ -149,3 +156,49 @@ def latest_checkpoint(directory: str) -> str | None:
 def parse_checkpoint_name(path: str) -> tuple[int, float] | None:
     m = _NAME_RE.search(os.path.basename(os.path.normpath(path)))
     return (int(m.group(1)), float(m.group(2))) if m else None
+
+
+def _placements(spec: tuple, mesh) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {axis: d for d, axis in enumerate(spec) if axis is not None}
+    return [Shard(dims[axis]) if axis in dims else Replicate() for axis in mesh.axes]
+
+
+def _as_dtensors(tree: dict, mesh, specs: dict | None) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    from xai_audio_deepfakes_tpu_torch.parallel.sharding import tree_map_with_path, _leaves_with_path
+
+    flat = dict(_leaves_with_path(specs)) if specs is not None else {}
+
+    def wrap(path, leaf):
+        t = torch.as_tensor(leaf)
+        return DTensor.from_local(t, mesh.device_mesh, _placements(flat.get(path, ()), mesh),
+                                  run_check=False)
+
+    return tree_map_with_path(wrap, tree)
+
+
+def save_sharded_checkpoint(directory: str, tree: dict, mesh, specs: dict | None = None) -> str:
+    """Write the rank's blocks `tree` (nested dicts of tensors or arrays)
+    under `specs` (the same structure, spec tuples; None: replicated) with
+    `torch.distributed.checkpoint`. Every rank of the mesh calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    os.makedirs(directory, exist_ok=True)
+    dcp.save(_as_dtensors(tree, mesh, specs), checkpoint_id=directory)
+    return os.path.abspath(directory)
+
+
+def load_sharded_checkpoint(directory: str, like: dict, mesh, specs: dict | None = None) -> dict:
+    """The rank's blocks read back from `save_sharded_checkpoint`'s
+    directory, into new tensors shaped as `like`'s under the same specs."""
+    import torch.distributed.checkpoint as dcp
+
+    from xai_audio_deepfakes_tpu_torch.parallel.sharding import tree_map_with_path
+
+    target = _as_dtensors(tree_map_with_path(lambda _, t: torch.empty_like(torch.as_tensor(t)),
+                                             like), mesh, specs)
+    dcp.load(target, checkpoint_id=directory)
+    return tree_map_with_path(lambda _, d: d.to_local(), target)

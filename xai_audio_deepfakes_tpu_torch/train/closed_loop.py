@@ -161,6 +161,7 @@ def run_closed_loop(
     l1_warmup_epochs: int = 0,
     device="cuda",
     pipe: ADDvisorPipeline | None = None,
+    mesh=None,
 ) -> dict:
     """The whole loop. Returns the detector's metrics (on its held-out split
     and on the evaluation corpus), the before / after / after-train
@@ -171,7 +172,9 @@ def run_closed_loop(
     `band_width` bands in [0, f_max) and localisation is scored per clip
     (`band` is ignored). `pipe` (default: a new pipeline on `device` with
     weights from `seed`) gets the fitted detector head, and its mask
-    decoder is trained in place."""
+    decoder is trained in place. With `mesh` the training runs sharded
+    (`train_addvisor(mesh=)`) on every rank, which runs the whole loop with
+    the same seed; the rest is replicated."""
     rng = np.random.default_rng(seed)
     n_samples, sc = cfg.audio.num_samples, cfg.stft
     pipe = ADDvisorPipeline(cfg, device=device, seed=seed) if pipe is None else pipe
@@ -228,7 +231,7 @@ def run_closed_loop(
 
     state = train_addvisor(pipe, batches, num_epochs=epochs, log_fn=_log,
                            artifact_fn=artifact_fn, checkpoint_fn=checkpoint_fn, decoder=decoder,
-                           l1_scale=l1_scale, l1_warmup_epochs=l1_warmup_epochs)
+                           l1_scale=l1_scale, l1_warmup_epochs=l1_warmup_epochs, mesh=mesh)
 
     after = evaluate_explanations(pipe, manip_ev, band, masking, batch_size, keep_wavs=keep_wavs,
                                   bands=bands_ev, **loc_kw)

@@ -25,6 +25,7 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from xai_audio_deepfakes_tpu_torch.config import PipelineConfig
 from xai_audio_deepfakes_tpu_torch.data.prefetch import prefetch, to_device
@@ -36,8 +37,12 @@ from xai_audio_deepfakes_tpu_torch.losses.lmac import (
     softplus_weights,
 )
 from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply
-from xai_audio_deepfakes_tpu_torch.models.unet import load_reference_state_dict
+from xai_audio_deepfakes_tpu_torch.models.unet import (
+    load_reference_state_dict,
+    set_batch_stats_group,
+)
 from xai_audio_deepfakes_tpu_torch.ops.masking import crop_spec
+from xai_audio_deepfakes_tpu_torch.parallel.mesh import STAGE_AXIS, batch_sharding, group_size
 from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 from xai_audio_deepfakes_tpu_torch.train.checkpoints import (
     HostSnapshot,
@@ -97,8 +102,22 @@ def init_train_state(pipe: ADDvisorPipeline, decoder: str = "unet") -> AddvisorT
     return AddvisorTrainState(model, w_raw, opt_model, opt_w)
 
 
+def _data_mean_(tensors: list, group) -> None:
+    """Average each tensor, in place, over `group` (one coalesced f32
+    all-reduce); nothing with a group of one rank."""
+    if group_size(group) == 1 or not tensors:
+        return
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= group_size(group)
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
+
+
 def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
-                    mark: Callable[[str], None] | None = None) -> Callable:
+                    mark: Callable[[str], None] | None = None, mesh=None) -> Callable:
     """-> step(state, wav, l1_scale=None) -> (state, aux dict).
 
     With decoder="features" the clean clip is embedded once (by the
@@ -117,8 +136,19 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     The step runs under cuDNN's deterministic algorithms
     (`device.deterministic_cudnn`), so two identical steps on the card give
     the same losses and gradients bit for bit, as the JAX step does.
+
+    With `mesh` (`parallel/mesh.py`), `pipe` is the rank's view
+    (`parallel/inference.py::shard_pipeline_params`) and every rank passes
+    the same batch: the step takes the rank's data shard of it, the UNet's
+    BatchNorm takes its statistics over the data axis, and the decoder's
+    and the loss weights' gradients, then the losses of `aux`, are averaged
+    over it (the loss is a mean over the batch, so the averages are the
+    whole batch's). At one rank every one of these is the plain step.
     """
     cfg = pipe.cfg
+    group = None if mesh is None else mesh.group(mesh.cfg.data_axis)
+    if decoder_params_key(decoder) == "unet":
+        set_batch_stats_group(pipe.unet, group)
     mark = mark or (lambda name: None)
     features = decoder_params_key(decoder) == "feat_decoder"
     # With the UNet the clean embed only produces the gradient-free target,
@@ -139,6 +169,8 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
 
     def _step(state: AddvisorTrainState, wav, l1_scale):
         wav = to_device(wav, pipe.device)
+        if mesh is not None:
+            wav = batch_sharding(mesh, wav)
         with torch.no_grad():  # the collate stage: STFT and the clean target
             _, _, mag, phase = pipe.stft_stage(wav)
             if features:
@@ -161,6 +193,8 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
         state.opt_model.zero_grad(set_to_none=True)
         state.opt_w.zero_grad(set_to_none=True)
         total.backward()
+        _data_mean_([p.grad for p in state.decoder.parameters() if p.grad is not None]
+                    + [state.w_raw.grad], group)
         mark("backward")
         state.opt_model.step()
         if cfg.train.freeze_l1_weight:
@@ -175,6 +209,10 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
         mark("optimiser")
 
         total, losses = total.detach(), losses.detach()
+        if group_size(group) > 1:
+            vec = torch.cat([total[None], losses])
+            _data_mean_([vec], group)
+            total, losses = vec[0], vec[1:]
         aux = {
             "loss": total, "l_in": losses[0], "l_out": losses[1], "l1": losses[2],
             "loss_vec": torch.cat([total[None], losses]),
@@ -197,6 +235,7 @@ def train_addvisor(
     decoder: str = "unet",
     l1_scale: float | None = None,
     l1_warmup_epochs: int = 0,
+    mesh=None,
 ) -> AddvisorTrainState:
     """Epoch loop. `batches()` yields wav arrays [B, num_samples] for one
     epoch. Logging, artifacts and checkpointing are injected:
@@ -210,6 +249,14 @@ def train_addvisor(
     `l1_warmup_epochs` ramps it linearly from 1.0 to `l1_scale` over that
     many epochs.
 
+    With `mesh` (`parallel/mesh.py::make_mesh`; every rank runs this loop
+    with the same batches) the frozen embedder is sharded as its specs say
+    (`parallel/inference.py::shard_pipeline_params`: Megatron over the model
+    axis, the layer stack over the stage axis, which needs `scan_layers`),
+    each step runs on the rank's data shard and the decoder's gradients are
+    averaged over the data axis (`make_train_step`). The decoder stays the
+    pipeline's own, trained in place on every rank.
+
     The host stays off the hot path: batches are staged onto the device by a
     background thread that runs ahead across epoch boundaries, per-step
     losses stay on the device, and each epoch's [n, 4] fold is copied to the
@@ -220,8 +267,15 @@ def train_addvisor(
     every `cfg.train.nan_check_every` steps bounds how long a diverged run
     continues; the fold names the exact failing step."""
     cfg = pipe.cfg
+    if mesh is not None:
+        from xai_audio_deepfakes_tpu_torch.parallel.inference import shard_pipeline_params
+
+        if mesh.size(STAGE_AXIS) > 1 and not cfg.embedder.scan_layers:
+            raise ValueError("pipeline-parallel training needs scan_layers=True "
+                             "(stacked [L, ...] layer params)")
+        pipe = shard_pipeline_params(pipe, mesh)
     state = init_train_state(pipe, decoder) if initial_state is None else initial_state
-    step_fn = make_train_step(pipe, decoder)
+    step_fn = make_train_step(pipe, decoder, mesh=mesh)
     num_epochs = cfg.train.num_epochs if num_epochs is None else num_epochs
     nan_every = cfg.train.nan_check_every
     every = cfg.train.checkpoint_every
