@@ -18,6 +18,16 @@ the readings that `PERF.md` cites for it.
         the f32 UNet; `--init normal` draws the weights from the untruncated
         N(0, 1/fan_in) the port used before `models/init.py::lecun_normal_`.
 
+    python3 chip_diag.py detector-fits [--seed 2] [--out F] DIR [DIR ...]
+        the anyband protocol's detector corpus at `--seed`
+        (`closed_loop_protocol.py`'s sizes and configuration, built and
+        embedded on the card; the run stops before the fit), then
+        `fit_logreg` from the checkout at each DIR in turn, each in its own
+        process, on the corpus's training split (seconds, steps, |w|, the
+        median |logit|), each against the same objective fitted in float64
+        for up to 20,000 steps (`closed_loop_protocol.float64_fit`; its
+        objective over the float64 one, cosine).
+
 Every command exits 1 without a CUDA card.
 """
 
@@ -51,6 +61,73 @@ def remat_off(dirs: list) -> int:
         print(f"== training remat off in {d}", flush=True)
         rc |= subprocess.run([sys.executable, "-c", REMAT_OFF], cwd=d, timeout=900).returncode
     return rc
+
+
+FIT = """
+import json, sys, time
+sys.path.insert(0, '.')
+import numpy as np, torch
+from xai_audio_deepfakes_tpu_torch.train import train_logreg
+d = np.load(sys.argv[1])
+logs = []
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+p = train_logreg.fit_logreg(d["x"], d["y"], log_fn=logs.append)
+torch.cuda.synchronize()
+sec = time.perf_counter() - t0
+np.savez(sys.argv[2], w=p["weight"].cpu().numpy()[:, 0], b=p["bias"].cpu().numpy())
+print(json.dumps({"seconds": sec, **logs[0]["lbfgs"]}))
+"""
+
+
+class _Corpus(Exception):
+    pass
+
+
+def detector_fits(torch, seed: int, dirs: list) -> dict:
+    import numpy as np
+
+    import closed_loop_protocol as clp
+    from xai_audio_deepfakes_tpu_torch.train import closed_loop, train_logreg
+
+    def stop(x, y, **kw):
+        raise _Corpus(x, y)
+
+    closed_loop.train_detector, keep = stop, closed_loop.train_detector
+    try:
+        closed_loop.run_closed_loop(
+            closed_loop.anyband_protocol_config(), seed=seed, n_train=clp.N_TRAIN,
+            n_eval=clp.N_EVAL, epochs=clp.EPOCHS, batch_size=clp.BATCH_SIZE,
+            noise_rms=clp.NOISE_RMS, anyband=True)
+        raise RuntimeError("run_closed_loop fitted no detector")
+    except _Corpus as e:
+        x, y = e.args
+    finally:
+        closed_loop.train_detector = keep
+    x_tr, _, y_tr, _ = train_logreg.stratified_split(x, y)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    np.savez(build / "detector_corpus.npz", x=x_tr, y=y_tr)
+    steps, gnorm, w64, b64, objective = clp.float64_fit(torch, x_tr, y_tr, 20000)
+    best = objective(w64, b64)
+    res = {"seed": seed, "rows": int(len(x)), "train_rows": int(len(x_tr)),
+           "features": int(x.shape[1]),
+           "float64": {"steps": steps, "gnorm": gnorm, "objective": best,
+                       "w_norm": float(np.linalg.norm(w64))}, "fits": {}}
+    for d in dirs:
+        out = subprocess.run([sys.executable, "-c", FIT, str(build / "detector_corpus.npz"),
+                              str(build / "detector_fit.npz")], cwd=d, timeout=600,
+                             capture_output=True, text=True, check=True)
+        fit = json.loads(out.stdout.strip().splitlines()[-1])
+        f = np.load(build / "detector_fit.npz")
+        w, b = f["w"].astype(np.float64), float(f["b"][0])
+        z = x_tr.astype(np.float64) @ w + b
+        fit.update(w_norm=float(np.linalg.norm(w)), median_abs_logit=float(np.median(np.abs(z))),
+                   objective_over_float64=objective(w, b) / best,
+                   cosine_to_float64=float(w @ w64 / (np.linalg.norm(w) * np.linalg.norm(w64))))
+        res["fits"][d] = fit
+        print(d, json.dumps(fit), flush=True)
+    return res
 
 
 def bf16_ulps(a, b):
@@ -242,6 +319,10 @@ def main(argv=None) -> int:
     s.add_argument("--seeds", type=int, default=12)
     s.add_argument("--init", choices=("lecun_normal", "normal"), default="lecun_normal")
     s.add_argument("--out")
+    f = sub.add_parser("detector-fits")
+    f.add_argument("--seed", type=int, default=2)
+    f.add_argument("--out")
+    f.add_argument("dirs", nargs="+")
     args = p.parse_args(argv)
     import torch
 
@@ -255,6 +336,8 @@ def main(argv=None) -> int:
         return remat_off(args.dirs)
     if args.cmd == "unet-trace":
         res = unet_trace(torch, args.seeds)
+    elif args.cmd == "detector-fits":
+        res = detector_fits(torch, args.seed, args.dirs)
     else:
         res = int8_sweep(torch, args.seeds, args.init)
     if args.out:

@@ -18,8 +18,10 @@ f32 and remat off (`scan_layers` is a parameter layout and stays), which
 takes the bf16 and "dots" gradient path out of the loop.
 
 It prints the card's name and power limit, each epoch's record as it is
-finalised, and last one JSON line: the detector's accuracy and EER, the
-before / after / after-train localisation, keep and flip rates and LMAC
+finalised, and last one JSON line: the detector's accuracy and EER, its
+fit (corpus rows and features, training rows, L-BFGS steps and seconds,
+|w| and the median |logit| on its training rows), the before / after /
+after-train localisation, keep and flip rates and LMAC
 metrics, the steady epoch seconds and clips/s through the epoch loop, and
 the phases' seconds. `--out` also writes that JSON and the training log.
 """
@@ -37,6 +39,33 @@ from pathlib import Path
 N_TRAIN, N_EVAL, EPOCHS, BATCH_SIZE, NOISE_RMS = 128, 64, 120, 16, 1.0
 
 
+def float64_fit(torch, x, y, max_iter: int, device="cuda"):
+    """The detector's objective on (x, y) fitted in float64 by the port's
+    L-BFGS (tol 1e-12), to see how far an f32 fit is from the optimum.
+    -> (steps, last gradient norm, weights [D], bias, the objective at any
+    (w, b) in float64)."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.train import train_logreg
+
+    f64 = dict(dtype=torch.float64, device=device)
+    xt = torch.as_tensor(x, **f64)
+    yt = torch.as_tensor(y, **f64)[:, None]
+    ref = {"weight": torch.zeros((x.shape[1], 1), **f64, requires_grad=True),
+           "bias": torch.zeros((1,), **f64, requires_grad=True)}
+    steps, _, _, gnorm = train_logreg.lbfgs_fit(
+        lambda: train_logreg.logreg_objective(ref, xt, yt, 1e6), ref, max_iter, 1e-12)
+
+    def objective(w, b) -> float:
+        p = {"weight": torch.as_tensor(np.asarray(w, np.float64)[:, None], **f64),
+             "bias": torch.tensor([float(b)], **f64)}
+        with torch.no_grad():
+            return float(train_logreg.logreg_objective(p, xt, yt, 1e6))
+
+    return (steps, gnorm, ref["weight"].detach().cpu().numpy()[:, 0], float(ref["bias"][0]),
+            objective)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -51,7 +80,9 @@ def main() -> int:
         print("closed_loop_protocol: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from xai_audio_deepfakes_tpu_torch.train import closed_loop
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.train import closed_loop, train_logreg
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,6 +114,30 @@ def main() -> int:
     for name in ("make_anyband_corpus", "detector_corpus_anyband", "train_detector",
                  "evaluate_explanations", "train_addvisor"):
         setattr(closed_loop, name, timed(name, getattr(closed_loop, name)))
+    fit: dict = {}
+    train_detector = closed_loop.train_detector
+
+    def recorded_train_detector(x, y, **kw):
+        params, metrics = train_detector(x, y, **kw)
+        x_tr, _, y_tr, _ = train_logreg.stratified_split(x, y)
+        w = params["weight"].cpu().numpy()[:, 0].astype(np.float64)
+        z = x_tr.astype(np.float64) @ w + float(params["bias"].cpu()[0])
+        fit.update(rows=int(x.shape[0]), features=int(x.shape[1]), train_rows=int(len(x_tr)),
+                   w_norm=float(np.linalg.norm(w)),
+                   median_abs_logit_train=float(np.median(np.abs(z))))
+        t0 = time.perf_counter()
+        steps, gnorm, w64, b64, objective = float64_fit(torch, x_tr, y_tr, 5000,
+                                                        params["weight"].device)
+        best = objective(w64, b64)
+        fit["float64_reference"] = {
+            "steps": steps, "gnorm": gnorm, "seconds": time.perf_counter() - t0,
+            "objective": best,
+            "fit_objective_rel": (objective(w, float(params["bias"].cpu()[0])) - best) / best,
+            "w_norm": float(np.linalg.norm(w64)),
+            "cosine": float(w @ w64 / (np.linalg.norm(w) * np.linalg.norm(w64)))}
+        return params, metrics
+
+    closed_loop.train_detector = recorded_train_detector
     t0 = time.perf_counter()
     res = closed_loop.run_closed_loop(
         cfg, seed=args.seed, n_train=N_TRAIN, n_eval=N_EVAL, epochs=EPOCHS,
@@ -105,6 +160,8 @@ def main() -> int:
                  "batch_size": BATCH_SIZE, "noise_rms": NOISE_RMS,
                  "embedder": dataclasses.asdict(cfg.embedder)},
         "detector": res["detector"],
+        "detector_fit": {**fit, "seconds": phases["train_detector"],
+                         "lbfgs": next(r["lbfgs"] for r in log if "lbfgs" in r)},
         "detector_holdout": res["detector_holdout"],
         **{phase: {k: ({kk: vv for kk, vv in v.items() if kk not in drop}
                        if isinstance(v, dict) else v)

@@ -2,9 +2,9 @@
 `train/train_logreg.py`).
 
 The reference fits scikit-learn's LogisticRegression(C=1e6) on the host.
-Here the fit runs on the device: full-batch L-BFGS (`torch.optim.LBFGS`,
-strong-Wolfe line search, 10 pairs of history, as `optax.lbfgs`; the
-driver `lbfgs_fit` also fits `band_probe.fit_softmax_probe`) on sklearn's
+Here the fit runs on the device: full-batch L-BFGS (`train/lbfgs.py`,
+optax.lbfgs()'s algorithm, which the JAX package's fit runs; the driver
+`lbfgs_fit` also fits `band_probe.fit_softmax_probe`) on sklearn's
 objective, sum_i log(1 + exp(-z_i)) + ||w||^2 / (2C) with the bias
 unregularised, and stops as the JAX package's fit does. Accuracy and EER
 are the reference's reported pair; the params drop into
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from xai_audio_deepfakes_tpu_torch.device import resolve_device
 from xai_audio_deepfakes_tpu_torch.metrics.eer import compute_eer
 from xai_audio_deepfakes_tpu_torch.models.logreg import logreg_apply
+from xai_audio_deepfakes_tpu_torch.train.lbfgs import LBFGS
 
 
 def stratified_split(
@@ -46,15 +47,19 @@ def stratified_split(
 
 def logreg_objective(params: dict, x: torch.Tensor, y: torch.Tensor, c: float) -> torch.Tensor:
     """sklearn's LogisticRegression objective for labels y in {0, 1}
-    ([N, 1] f32): the summed log-loss plus ||w||^2 / (2C). The log-loss is
-    `binary_cross_entropy_with_logits`, whose gradient is sigmoid(z) - y
-    everywhere. (The JAX package's max(z, 0) + log1p(exp(-|z|)) has a kink
-    at z = 0 in each term, where torch's derivatives of `clamp_min` and
-    `abs` give 1 - y, not JAX's 0.5 - y: every logit is 0 at the fit's
-    start, and from that wrong first gradient L-BFGS never left w = 0 on
-    features with a common offset, as pooled embeddings have.)"""
-    logits = logreg_apply(params, x)[0]
-    nll = F.binary_cross_entropy_with_logits(logits, y, reduction="sum")
+    ([N, 1] f32): the summed log-loss plus ||w||^2 / (2C), the log-loss
+    written y softplus(-z) + (1 - y) softplus(z). Its gradient,
+    (1 - y) sigmoid(z) - y sigmoid(-z), keeps full f32 precision at every
+    logit, and is sigmoid(0) - y at the fit's start, where every logit is 0.
+    Where features outnumber rows the fit ends at |z| of 10-20, where
+    sigmoid(z) - y (`binary_cross_entropy_with_logits`' gradient, and the
+    JAX package's max(z, 0) + log1p(exp(-|z|)) summed as XLA sums it)
+    keeps 7 significant bits of a row's term at |z| = 12 and none beyond
+    17: the line searches then fail on the noise and the fit stalls short
+    of the optimum. (Torch's derivatives at that form's kink give 1 - y at
+    z = 0, from which the fit never leaves w = 0 on offset features.)"""
+    z = logreg_apply(params, x)[0]
+    nll = (y * F.softplus(-z) + (1.0 - y) * F.softplus(z)).sum()
     return nll + 0.5 / c * (params["weight"] ** 2).sum()
 
 
@@ -62,37 +67,34 @@ def lbfgs_fit(
     objective: Callable[[], torch.Tensor], params: dict, max_iter: int, tol: float
 ) -> tuple[int, int, float, float]:
     """Minimise `objective()` over the tensors of `params` in place by
-    full-batch L-BFGS (strong-Wolfe line search, 10 pairs of history, as
-    `optax.lbfgs`). It stops as the JAX package's fits do: after the first
-    step whose starting gradient has norm below tol * max(1, |objective|),
-    or after `max_iter` steps. -> (steps, objective evaluations, the last
-    step's starting objective and gradient norm)."""
+    full-batch L-BFGS (`lbfgs.LBFGS`, as `optax.lbfgs()`). It stops as the
+    JAX package's fits do: after the first step whose starting gradient has
+    norm below tol * max(1, |objective|), or after `max_iter` steps.
+    -> (steps, objective evaluations, the last step's starting objective
+    and gradient norm)."""
     tensors = list(params.values())
-    # one L-BFGS iteration per step(), torch's own stopping tests off, so that
-    # the rule above decides. torch caps the line search at max_eval less the
-    # step's first evaluation; its default max_eval for one iteration (1)
-    # would leave the search no evaluation, and L-BFGS stalls
-    opt = torch.optim.LBFGS(tensors, lr=1.0, max_iter=1, max_eval=1 + 25, history_size=10,
-                            tolerance_grad=0.0, tolerance_change=0.0,
-                            line_search_fn="strong_wolfe")
-    start: list = []
+    sizes = [p.numel() for p in tensors]
 
-    def closure():
-        opt.zero_grad()
-        loss = objective()
-        loss.backward()
-        if not start:  # the first evaluation of a step is at its starting point
-            start.append((loss.detach(), torch.cat([p.grad.flatten() for p in tensors]).norm()))
-        return loss
+    def load(x):
+        with torch.no_grad():
+            for p, v in zip(tensors, x.split(sizes)):
+                p.copy_(v.view_as(p))
 
+    def value_and_grad(x):
+        load(x)
+        with torch.enable_grad():
+            loss = objective()
+            grads = torch.autograd.grad(loss, tensors)
+        return loss, torch.cat([g.reshape(-1) for g in grads])
+
+    opt = LBFGS(value_and_grad, torch.cat([p.detach().reshape(-1) for p in tensors]))
     steps = 0
     for steps in range(1, max_iter + 1):
-        start.clear()
-        opt.step(closure)
-        value, gnorm = (float(v) for v in start[0])
+        value, gnorm = opt.step()
         if gnorm < tol * max(1.0, abs(value)):
             break
-    return steps, opt.state[tensors[0]]["func_evals"], value, gnorm
+    load(opt.x)
+    return steps, opt.evaluations, value, gnorm
 
 
 def fit_logreg(
