@@ -149,7 +149,10 @@ PyTorch built for CUDA. It
     the explain and the HiFi-GAN timed apart, `generate_vocoded_dataset`
     over datagen's 8 wavs (64 band-spliced wavs, a file B 3, C 1, leakage
     warnings counted), and a tiny `explain_vocoded` on the card against
-    the CPU;
+    the CPU; then replays the JAX package's seed-0 weights at the anyband
+    protocol's configuration on the card (`reference_draw.jax_init_params`,
+    about 435M values), prints its seconds and holds every leaf against
+    `tests/reference_draw_fingerprints.json` (`run_reference_draw`);
 17. runs the closed loop reduced (`run_closed_loop(anyband=True)`, 32
     training and 16 evaluation clips, 3 epochs at batch 16) in the
     configuration of `docs/closed_loop_anyband`'s command line (bf16,
@@ -2347,6 +2350,62 @@ def run_tiny_detector(torch) -> None:
                 torch.from_numpy(feats[1]), 5e-4)
 
 
+def run_reference_draw(torch) -> None:
+    """The JAX package's `init_params(PRNGKey(0))` at the anyband protocol's
+    configuration (`closed_loop.anyband_protocol_config()`), replayed on the
+    card by `reference_draw.jax_init_params`, its seconds printed, and each
+    leaf held against the fingerprints that JAX's own draw gave on the CPU
+    (`tests/reference_draw_fingerprints.json`, written by `python -m
+    tests.test_torch_reference_draw --fingerprints`): the shape, the first 4
+    values within 4 f32 ulps, the sum and the sum of squares within what 4
+    ulps of every element allow (|d sum| <= 4 2^-23 sqrt(n sum x^2),
+    |d sum x^2| <= 9 2^-23 sum x^2), zeros and ones exactly."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.reference_draw import jax_init_params
+    from xai_audio_deepfakes_tpu_torch.train.closed_loop import anyband_protocol_config
+
+    path = Path(__file__).resolve().parent / "tests" / "reference_draw_fingerprints.json"
+    fingerprints = json.loads(path.read_text())["leaves"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = jax_init_params(anyband_protocol_config(), 0)
+    seconds = time.perf_counter() - t0
+    ulp = 2.0**-23
+    n_values = worst_first = 0
+    for sub, leaves in fingerprints.items():
+        for name, want in leaves.items():
+            leaf = params[sub]
+            for key in name.split("/"):
+                leaf = leaf[key]
+            flat = np.asarray(leaf, np.float32).reshape(-1)
+            if list(leaf.shape) != want["shape"]:
+                fail(f"reference draw {sub}/{name}: shape {list(leaf.shape)} != {want['shape']}")
+            f64 = flat.astype(np.float64)
+            got_sum, got_sq = float(f64.sum()), float((f64 * f64).sum())
+            first = np.asarray(want["first"], np.float32)
+            # ulps on the sign-magnitude line (0 between +0 and -0)
+            i_got, i_want = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (
+                flat[:4].view(np.int32).astype(np.int64), first.view(np.int32).astype(np.int64)))
+            d_first = np.abs(i_got - i_want)
+            if want["sumsq"] == 0.0 or (want["sumsq"] == want["sum"] == flat.size):
+                ok = got_sum == want["sum"] and got_sq == want["sumsq"] and not d_first.any()
+            else:
+                ok = (abs(got_sum - want["sum"]) <= 4 * ulp * math.sqrt(flat.size * want["sumsq"])
+                      and abs(got_sq - want["sumsq"]) <= 9 * ulp * want["sumsq"]
+                      and int(d_first.max()) <= 4)
+            if not ok:
+                fail(f"reference draw {sub}/{name} disagrees with its fingerprint: sum {got_sum} "
+                     f"vs {want['sum']}, sum x^2 {got_sq} vs {want['sumsq']}, first 4 "
+                     f"{flat[:4].tolist()} vs {want['first']}")
+            n_values += flat.size
+            worst_first = max(worst_first, int(d_first.max()))
+    n_leaves = sum(len(v) for v in fingerprints.values())
+    print(f"reference draw (seed 0, anyband protocol config): {n_values} values in "
+          f"{seconds:.2f} s on the card; {n_leaves} leaves agree with JAX's fingerprints "
+          f"(first values within {worst_first} ulps)")
+
+
 def _flat_state(sd, prefix: str = "") -> dict:
     out = {}
     for k, v in sd.items():
@@ -3682,6 +3741,8 @@ def main() -> int:
     # the vocoder over datagen's wavs, then the reduced closed loop
     paths.update(run_vocoder(torch, wav_root))
     run_tiny_vocoded(torch)
+    run_reference_draw(torch)
+    torch.cuda.empty_cache()
     paths.update(run_closed_loop_reduced(torch, wav_root))
     torch.cuda.empty_cache()
     run_cli(torch, build / "cli_smoke", wav_root)

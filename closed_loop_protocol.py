@@ -2,7 +2,8 @@
 """Run the anyband closed-loop protocol with the PyTorch/CUDA port on one
 NVIDIA card and print its result.
 
-    python3 closed_loop_protocol.py [--seed 0] [--f32-embedder] [--out PATH]
+    python3 closed_loop_protocol.py [--seed 0] [--f32-embedder] [--reference-draw]
+        [--l1-scale X] [--save-decoder PATH] [--probe] [--out PATH]
 
 The protocol is the command line behind the JAX package's
 `docs/closed_loop_anyband` result (`cli closed-loop --anyband --scan-layers
@@ -17,13 +18,37 @@ are fixed (the CLI's `closed-loop` will take them as options).
 f32 and remat off (`scan_layers` is a parameter layout and stays), which
 takes the bf16 and "dots" gradient path out of the loop.
 
+`--reference-draw` loads the JAX package's own weights for the seed,
+`init_params(PRNGKey(seed))` replayed by `reference_draw.py`, in place of
+the port's torch draw; at seed 0 these are the weights behind
+`docs/closed_loop_anyband` (and, with `--l1-scale 4`,
+`docs/closed_loop_anyband_l1x4`). There it prints a witness after epoch 1
+(`loss`, `l_in`, `l_out`, `l1`, `w`) beside the record's, and the result
+holds the detector's accuracy and EER on its split and held out, every
+epoch, and the untrained decoder's per-clip localisation (which depends on
+the UNet's weights and the evaluation clips alone) beside the record's.
+`--l1-scale` multiplies the L1 term (`cli closed-loop --l1-scale`).
+`--save-decoder` writes the trained UNet's state dict (weights and running
+statistics). `--probe` measures, on the 64 training clips that `after_train`
+explains, p(manipulated) of the complement and the flip rate four ways:
+(i) the explain (BatchNorm on its running statistics), (ii) the explain
+with BatchNorm on each batch of 16's own statistics, (iii) the training
+step's own collate and forward (`make_train_step(...).forward`, BatchNorm
+in training mode, as the step runs it), (iv) that forward with BatchNorm on
+its running statistics; and, per BatchNorm layer, the relative gap between
+the running statistics and the mean of the last epoch's batch statistics.
+The running statistics are restored after (ii) and (iii).
+
 It prints the card's name and power limit, each epoch's record as it is
 finalised, and last one JSON line: the detector's accuracy and EER, its
 fit (corpus rows and features, training rows, L-BFGS steps and seconds,
 |w| and the median |logit| on its training rows), the before / after /
 after-train localisation, keep and flip rates and LMAC
 metrics, the steady epoch seconds and clips/s through the epoch loop, and
-the phases' seconds. `--out` also writes that JSON and the training log.
+the phases' seconds (with `--reference-draw`, the replay and the load of its
+weights apart; `wall_s` counts neither, as before they existed: the
+pipeline's build and `run_closed_loop`). `--out` also writes that JSON and
+the training log.
 """
 
 from __future__ import annotations
@@ -37,6 +62,158 @@ import time
 from pathlib import Path
 
 N_TRAIN, N_EVAL, EPOCHS, BATCH_SIZE, NOISE_RMS = 128, 64, 120, 16, 1.0
+ROOT = Path(__file__).resolve().parent
+# the JAX package's seed-0 records, by L1 scale, and the witness's bars
+# (TPU bf16 against H100 bf16: no bit equality): the detector's accuracy
+# and EER within 0.02, epoch 1's l_out within 10% and l1 within 5%
+RECORDS = {1.0: "docs/closed_loop_anyband", 4.0: "docs/closed_loop_anyband_l1x4"}
+DET_TOL, L_OUT_REL, L1_REL = 0.02, 0.10, 0.05
+
+
+def load_record(l1_scale: float | None) -> tuple[dict, list] | None:
+    """(the record's result, its epoch records) for this L1 scale, if any."""
+    d = RECORDS.get(1.0 if l1_scale is None else float(l1_scale))
+    if d is None:
+        return None
+    res = json.loads((ROOT / d / "closed_loop.json").read_text())
+    log = [json.loads(line) for line in (ROOT / d / "closed_loop_log.jsonl").read_text().split("\n")
+           if line.strip()]
+    return res, [r for r in log if "epoch" in r]
+
+
+def detector_witness(record: dict, split: dict, held_out: dict) -> dict:
+    out = {}
+    for name, mine, theirs in (("split", split, record["detector"]),
+                               ("held_out", held_out, record["detector_holdout"])):
+        for k in ("accuracy", "eer"):
+            out[f"{name}_{k}"] = {"port": mine[k], "record": theirs[k],
+                                  "holds": abs(mine[k] - theirs[k]) <= DET_TOL}
+    return out
+
+
+def epoch_witness(rec: dict, theirs: dict) -> dict:
+    out = {k: {"port": rec[k], "record": theirs[k]} for k in ("loss", "l_in", "l_out", "l1", "w")}
+    out["l_out"]["holds"] = abs(rec["l_out"] / theirs["l_out"] - 1.0) <= L_OUT_REL
+    out["l1"]["holds"] = abs(rec["l1"] / theirs["l1"] - 1.0) <= L1_REL
+    return out
+
+
+def untrained_witness(mine: list, theirs: list) -> dict:
+    """The untrained decoder's per-clip localisation against the record's:
+    it depends on the UNet's weights and the evaluation clips only (not on
+    the detector), so it witnesses the replayed UNet and the corpus."""
+    return {k: max(abs(a[k] - b[k]) for a, b in zip(mine, theirs))
+            for k in ("iou", "in_band_mean", "out_band_mean")}
+
+
+def against_record(records: list, theirs: list) -> dict:
+    """Per epoch, the port's l_out, l1 and w over the record's, and the
+    first epoch where one leaves the witness's bars (w by 5%)."""
+    ratio = {k: [] for k in ("l_out", "l1", "w_max_rel")}
+    first = None
+    for mine, rec in zip(records, theirs):
+        r_out, r_l1 = mine["l_out"] / rec["l_out"], mine["l1"] / rec["l1"]
+        w_rel = max(abs(a / b - 1.0) for a, b in zip(mine["w"], rec["w"]))
+        ratio["l_out"].append(r_out)
+        ratio["l1"].append(r_l1)
+        ratio["w_max_rel"].append(w_rel)
+        if first is None and (abs(r_out - 1) > L_OUT_REL or abs(r_l1 - 1) > L1_REL
+                              or w_rel > L1_REL):
+            first = mine["epoch"]
+    return {"first_epoch_beyond_bars": first, **ratio}
+
+
+def bn_layers(unet) -> dict:
+    from xai_audio_deepfakes_tpu_torch.models.unet import BatchNorm2d
+
+    return {name: m for name, m in unet.named_modules() if isinstance(m, BatchNorm2d)}
+
+
+def record_batch_stats(torch, unet, keep: int) -> dict:
+    """Forward hooks that keep, per BatchNorm layer, the last `keep`
+    training-mode batches' (mean, biased var) in float64."""
+    from collections import deque
+
+    kept: dict = {}
+    for name, m in bn_layers(unet).items():
+        kept[name] = deque(maxlen=keep)
+
+        def hook(mod, inp, out, q=kept[name]):
+            if mod.training:
+                x = inp[0].detach().double()
+                mean = x.mean(dim=(0, 2, 3))
+                q.append((mean, (x * x).mean(dim=(0, 2, 3)) - mean * mean))
+
+        m.register_forward_hook(hook)
+    return kept
+
+
+def bn_gaps(torch, unet, kept: dict) -> dict:
+    """Per layer: ||running - batch|| / ||batch|| for mean and var, the
+    batch statistics averaged over the kept batches."""
+    out = {}
+    for name, m in bn_layers(unet).items():
+        bm = torch.stack([a for a, _ in kept[name]]).mean(dim=0)
+        bv = torch.stack([b for _, b in kept[name]]).mean(dim=0)
+        out[name] = {
+            "mean_rel": float((m.running_mean.double() - bm).norm() / bm.norm()),
+            "var_rel": float((m.running_var.double() - bv).norm() / bv.norm()),
+            "mean_gap_in_std": float(((m.running_mean.double() - bm).abs()
+                                      / bv.clamp_min(1e-30).sqrt()).max())}
+    return out
+
+
+def probe(torch, pipe, state, clips, batch_size: int) -> dict:
+    """p(manipulated) of the complement (mean) and the flip rate on
+    `clips`, four ways (see the module's docstring)."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.config import manipulated_probability
+    from xai_audio_deepfakes_tpu_torch.device import deterministic_cudnn
+    from xai_audio_deepfakes_tpu_torch.train.closed_loop import _batches
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import make_train_step
+
+    cfg, unet = pipe.cfg, pipe.unet
+    bns = list(bn_layers(unet).values())
+    forward = make_train_step(pipe).forward
+    l_outs: list = []
+
+    def explain_irr(chunk, train_bn):
+        unet.train(train_bn)
+        try:
+            return pipe.explain(chunk, masking=cfg.loss.masking).probs_irrelevant[:, 0]
+        finally:
+            unet.eval()
+
+    def step_irr(chunk, train_bn):
+        logits: list = []  # the relevant waveform's, then the irrelevant one's
+        with torch.no_grad(), deterministic_cudnn():
+            _, losses, _ = forward(state, chunk, train_bn=train_bn, on_logits=logits.append)
+        l_outs.append(float(losses[1]))
+        return torch.sigmoid(logits[1][:, 0])
+
+    out = {}
+    for name, fn, train_bn in (("i_explain_bn_eval", explain_irr, False),
+                               ("ii_explain_bn_batch", explain_irr, True),
+                               ("iii_step_bn_train", step_irr, True),
+                               ("iv_step_bn_eval", step_irr, False)):
+        saved = [(b.running_mean.clone(), b.running_var.clone(), b.num_batches_tracked.clone())
+                 for b in bns]
+        l_outs.clear()
+        try:
+            probs = [fn(chunk, train_bn)[:k].float().cpu()
+                     for chunk, k in _batches(clips, batch_size)]
+        finally:
+            with torch.no_grad():
+                for b, (rm, rv, nb) in zip(bns, saved):
+                    b.running_mean.copy_(rm)
+                    b.running_var.copy_(rv)
+                    b.num_batches_tracked.copy_(nb)
+        p = manipulated_probability(torch.cat(probs), cfg.polarity).numpy()
+        out[name] = {"p_irr_mean": float(p.mean()), "flip_rate": float(np.mean(p < 0.5))}
+        if l_outs:
+            out[name]["l_out_mean_over_batches"] = float(np.mean(l_outs))
+    return out
 
 
 def float64_fit(torch, x, y, max_iter: int, device="cuda"):
@@ -71,6 +248,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--f32-embedder", action="store_true",
                     help="the control: embedder in f32, remat off")
+    ap.add_argument("--reference-draw", action="store_true",
+                    help="the JAX package's init_params(PRNGKey(seed)) weights, replayed")
+    ap.add_argument("--l1-scale", type=float, default=None,
+                    help="multiplier on the L1 term (default: the reference formula, 1.0)")
+    ap.add_argument("--save-decoder", default=None,
+                    help="write the trained UNet's state dict here")
+    ap.add_argument("--probe", action="store_true",
+                    help="the BatchNorm-mode probe on the after_train clips")
     ap.add_argument("--out", default=None, help="write the result JSON here")
     args = ap.parse_args()
 
@@ -82,6 +267,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
+    from xai_audio_deepfakes_tpu_torch.convert import load_jax_params
+    from xai_audio_deepfakes_tpu_torch.data.synthetic import make_anyband_corpus
+    from xai_audio_deepfakes_tpu_torch.reference_draw import jax_init_params
     from xai_audio_deepfakes_tpu_torch.train import closed_loop, train_logreg
 
     smi = subprocess.run(
@@ -95,12 +283,34 @@ def main() -> int:
                                                        remat=False))
     phases: dict = {}
     log: list = []
+    record = load_record(args.l1_scale) if args.reference_draw and args.seed == 0 else None
+    witness: dict = {}
+
+    t0 = time.perf_counter()
+    pipe = closed_loop.ADDvisorPipeline(cfg, device="cuda", seed=args.seed)
+    if args.reference_draw:
+        t1 = time.perf_counter()
+        params = jax_init_params(cfg, args.seed)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        load_jax_params(pipe, params)
+        del params
+        torch.cuda.synchronize()
+        phases["reference_draw"], phases["load_jax_params"] = t2 - t1, time.perf_counter() - t2
+        t0 += time.perf_counter() - t1  # wall_s: the build and the loop, as without the replay
+        print(json.dumps({"reference_draw_s": phases["reference_draw"],
+                          "load_jax_params_s": phases["load_jax_params"]}), flush=True)
+    kept = (record_batch_stats(torch, pipe.unet, N_TRAIN // BATCH_SIZE)
+            if args.probe else None)
 
     def log_fn(rec: dict) -> None:
         log.append(rec)
         if "epoch" in rec:
             phases.setdefault("first_epoch_record", time.perf_counter())
         print(json.dumps(rec), flush=True)
+        if record is not None and rec.get("epoch") == 1:
+            witness["epoch_1"] = epoch_witness(rec, record[1][0])
+            print(json.dumps({"witness_epoch_1": witness["epoch_1"]}), flush=True)
 
     def timed(name, fn):
         def wrapped(*a, **kw):
@@ -138,12 +348,31 @@ def main() -> int:
         return params, metrics
 
     closed_loop.train_detector = recorded_train_detector
-    t0 = time.perf_counter()
     res = closed_loop.run_closed_loop(
         cfg, seed=args.seed, n_train=N_TRAIN, n_eval=N_EVAL, epochs=EPOCHS,
-        batch_size=BATCH_SIZE, noise_rms=NOISE_RMS, anyband=True, log_fn=log_fn)
+        batch_size=BATCH_SIZE, noise_rms=NOISE_RMS, anyband=True, log_fn=log_fn,
+        l1_scale=args.l1_scale, pipe=pipe)
     wall = time.perf_counter() - t0
     phases.pop("first_epoch_record", None)
+    if args.save_decoder:
+        Path(args.save_decoder).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(pipe.unet.state_dict(), args.save_decoder)
+    extra: dict = {}
+    if record is not None:
+        witness["detector"] = detector_witness(record[0], res["detector"],
+                                               res["detector_holdout"])
+        extra["witness"] = witness
+    if kept is not None:
+        # the clips `after_train` explains: the first N_EVAL training clips,
+        # the first corpus the seed's rng draws
+        t1 = time.perf_counter()
+        _, manip_tr, _ = make_anyband_corpus(
+            np.random.default_rng(args.seed), N_TRAIN, cfg.audio.num_samples, cfg.stft, 1000.0,
+            8000.0, NOISE_RMS, device=pipe.device)
+        extra["bn_gap_last_epoch"] = bn_gaps(torch, pipe.unet, kept)
+        extra["probe"] = probe(torch, pipe, res["state"], manip_tr[:N_EVAL], BATCH_SIZE)
+        extra["probe"]["after_train_flip_rate"] = res["after_train"]["flip_rate"]
+        phases["probe"] = time.perf_counter() - t1
 
     records = [r for r in log if "epoch" in r]
     # an epoch's `sec` is the host's time between its boundaries; the epoch
@@ -169,8 +398,12 @@ def main() -> int:
            for phase in ("before", "after", "after_train")},
         "epoch_sec_first": records[0]["sec"], "epoch_sec_last": records[-1]["sec"],
         "epoch_sec_steady": steady, "clips_per_s_steady": clips / steady,
-        "final_record": records[-1], "wall_s": wall, "phase_s": phases,
+        "final_record": records[-1], "wall_s": wall, "phase_s": phases, **extra,
     }
+    if record is not None:
+        summary["against_record"] = against_record(records, record[1])
+        summary["witness"]["untrained_masks"] = untrained_witness(
+            res["before"]["localization"]["per_clip"], record[0]["before"]["localization"]["per_clip"])
     if args.out:
         path = Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

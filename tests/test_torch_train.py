@@ -247,6 +247,41 @@ def test_unet_training_mode_matches_flax(rng, jax_params):
     assert worst > 1e-5
 
 
+def test_running_statistics_follow_flax_over_many_batches(jax_params):
+    """120 training-mode forwards on fixed weights, each on a new batch of
+    16 whose level drifts as a training decoder's activations do: every
+    10th batch, each running statistic within 1e-5 of its leaf's scale of
+    flax's, each side carrying its own; after the last, the eval-mode
+    masks within 1e-5. The running statistics are flax's exponential
+    average (momentum 0.99), so they lag the drift by about 100 batches in
+    both frameworks alike."""
+    rng = np.random.default_rng(11)
+    jnet = JUNet(jc.UNetConfig(**TINY_UNET))
+    apply = jax.jit(lambda v, m: jnet.apply(v, m, train=True, mutable=["batch_stats"]))
+    variables = jax.tree.map(jnp.asarray, jax_params["unet"])
+    model = UNetMaskDecoder(tc.UNetConfig(**TINY_UNET))
+    load_unet(model, jax_params["unet"])
+    model.train()
+    for i in range(120):
+        mag = (rng.uniform(0, 2, (16, 64, 24)) * (1.0 + i / 60)).astype(np.float32)
+        _, upd = apply(variables, jnp.asarray(mag))
+        variables = {**variables, "batch_stats": upd["batch_stats"]}
+        with torch.no_grad():
+            model(torch.from_numpy(mag))
+        if i % 10 == 9:
+            got = unet_variables_to_jax(model)["batch_stats"]
+            for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
+                                    jax.tree.leaves(variables["batch_stats"])):
+                w = np.asarray(w)
+                np.testing.assert_allclose(g, w, atol=1e-5 * float(np.abs(w).max()),
+                                           err_msg=f"batch {i + 1}{jax.tree_util.keystr(path)}")
+    model.eval()
+    mag = rng.uniform(0, 2, (2, 64, 24)).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(mag)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jnet.apply(variables, jnp.asarray(mag))), atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # one whole training step against the JAX step
 # ---------------------------------------------------------------------------

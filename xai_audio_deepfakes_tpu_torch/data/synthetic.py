@@ -127,6 +127,17 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def draw_anyband(rng: np.random.Generator, n: int, num_samples: int, sample_rate: int,
+                 band_width: float = 1000.0, f_max: float = 8000.0,
+                 noise_rms: float = 0.5) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`make_anyband_corpus`'s draws from `rng`, in numpy: (real clips,
+    noise sources, bands [n, 2] in Hz)."""
+    real = speechlike_clips(rng, n, num_samples, sample_rate)
+    src = noise_clips(rng, n, num_samples, rms=noise_rms)
+    starts = rng.integers(0, int(f_max // band_width), size=n).astype(np.float64) * band_width
+    return real, src, np.stack([starts, starts + band_width], axis=1)
+
+
 @torch.inference_mode()
 def make_anyband_corpus(
     rng: np.random.Generator,
@@ -143,11 +154,8 @@ def make_anyband_corpus(
     [0, f_max), so that a mask that explains must localise a different band
     per input."""
     dev = resolve_device(device)
-    real = speechlike_clips(rng, n, num_samples, stft_cfg.sample_rate)
-    src = noise_clips(rng, n, num_samples, rms=noise_rms)
-    n_bands = int(f_max // band_width)
-    starts = rng.integers(0, n_bands, size=n).astype(np.float64) * band_width
-    bands = np.stack([starts, starts + band_width], axis=1)
+    real, src, bands = draw_anyband(rng, n, num_samples, stft_cfg.sample_rate, band_width,
+                                    f_max, noise_rms)
     ind = per_clip_band_indicator(stft_cfg, bands)
     manipulated = _host(splice_band_per_clip(torch.from_numpy(real).to(dev),
                                              torch.from_numpy(src).to(dev), stft_cfg, ind))

@@ -130,6 +130,8 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     (those four on the device, for the epoch fold), the softplus weights
     after the renorm and the first clip's mask. The gradients of the step
     stay on the decoder's parameters and on `state.w_raw` until the next one.
+    `step.forward(state, wav, l1_scale=None, train_bn=True, on_logits=None)`
+    is the step's collate and forward alone, with no update.
     A profiler passes `mark`: it is called with "collate", "forward",
     "backward" and "optimiser" as each of those phases has been enqueued.
 
@@ -167,7 +169,19 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
         with deterministic_cudnn():
             return _step(state, wav, l1_scale)
 
-    def _step(state: AddvisorTrainState, wav, l1_scale):
+    def forward(state: AddvisorTrainState, wav, l1_scale=None, train_bn: bool = True,
+                on_logits: Callable[[torch.Tensor], None] | None = None):
+        """The step's collate and forward: -> (total, losses [3], mask).
+        `train_bn=False` runs the decoder's BatchNorm on its running
+        statistics; `on_logits` is called with the detector's logits of the
+        relevant, then of the irrelevant waveform."""
+        classify = classify_wav
+        if on_logits is not None:
+            def classify(w, encoder=None):
+                logits = classify_wav(w, encoder)
+                on_logits(logits)
+                return logits
+
         wav = to_device(wav, pipe.device)
         if mesh is not None:
             wav = batch_sharding(mesh, wav)
@@ -182,14 +196,18 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
             class_pred = torch.sigmoid(logits)
         mark("collate")
 
-        state.decoder.train()
+        state.decoder.train(train_bn)
         try:
             mask = state.decoder(dec_in)
         finally:
             state.decoder.eval()
-        total, losses, _ = lmac_loss(state.w_raw, mask, mag, phase, class_pred, classify_wav,
+        total, losses, _ = lmac_loss(state.w_raw, mask, mag, phase, class_pred, classify,
                                      pipe.istft_stage, cfg.loss, l1_scale=l1_scale)
         mark("forward")
+        return total, losses, mask
+
+    def _step(state: AddvisorTrainState, wav, l1_scale):
+        total, losses, mask = forward(state, wav, l1_scale)
         state.opt_model.zero_grad(set_to_none=True)
         state.opt_w.zero_grad(set_to_none=True)
         total.backward()
@@ -221,6 +239,7 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
         }
         return state, aux
 
+    step.forward = forward
     return step
 
 
