@@ -95,6 +95,11 @@ PyTorch built for CUDA. It
     same launches, an empty state dict, `explain.pt2` under 5% of
     `params.npz`, its ms against the eager explain's, and `with_params`
     with a second UNet's weights against the eager pipeline holding them;
+    then `save_exported(platforms=("cuda", "cpu"))` at batch 1, whose two
+    graphs a second process (`--platforms-child`) loads: the cuda one held
+    bit-equal to the eager card explain (A 9, B 1, C 2), the cpu one
+    (`device="cpu"`) within 1e-6 of the eager CPU explain of the same
+    weights, and the phase's seconds;
 11. runs `explain(decoder="features")` at full width, B=8, with both
     frontends (A 18, B 1, C 2, D 14; or D 2, E 12), its stage split and
     peak memory; `run_explanation_metrics` over 3 batches of 8 with each
@@ -3181,6 +3186,112 @@ def run_export(torch, pipe, root: Path) -> dict:
     return {"artifact_explain": got["launches"]}
 
 
+def platforms_child(art_dir: str, ref_dir: str) -> int:
+    """The platforms phase's second process: load each graph of a
+    ("cuda", "cpu") artifact with the port's model code blocked, run it on
+    its device against the parent's eager explains, print one JSON line."""
+    for name in ("xai_audio_deepfakes_tpu_torch.models", "xai_audio_deepfakes_tpu_torch.pipeline"):
+        sys.modules[name] = None  # importing either now raises
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+    import torch
+
+    from xai_audio_deepfakes_tpu_torch.ops import _cuda
+    from xai_audio_deepfakes_tpu_torch.serve.export import OUTPUT_FIELDS, load_exported
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = np.load(Path(ref_dir) / "platforms_ref.npz")
+    out: dict = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        art = load_exported(art_dir, device=None if device == "cuda" else device)
+        load_s = time.perf_counter() - t0
+        art(ref["wav"])  # warm-up
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = art(ref["wav"])
+        run_s = time.perf_counter() - t0
+        out[device] = {"device": str(art.device), "load_s": load_s, "run_s": run_s,
+                       "launches": dict(_cuda.LAUNCHES), "errors": {}}
+        for f in OUTPUT_FIELDS:
+            a, b = getattr(got, f).float().cpu().numpy(), ref[f"{device}_{f}"]
+            out[device]["errors"][f] = {"max_abs_err": float(np.abs(a - b).max()),
+                                        "bit_equal": bool((a == b).all())}
+    out["imported_model_modules"] = sorted(
+        m for m in sys.modules if sys.modules[m] is not None and m.startswith(
+            ("xai_audio_deepfakes_tpu_torch.models", "xai_audio_deepfakes_tpu_torch.pipeline")))
+    print(json.dumps(out))
+    return 0
+
+
+def run_export_platforms(torch, pipe, root: Path) -> dict:
+    """`save_exported(platforms=("cuda", "cpu"))` at batch 1 and full width,
+    then a second process (`platforms_child`) runs each graph: the cuda one
+    bit-equal to the eager card explain with launches A, B 1, C 2, the cpu
+    one within 1e-6 of the eager explain of a CPU pipeline holding the same
+    weights (`test_artifact_matches_eager_explain`'s bar; bit-equality
+    printed); no model module imported. Prints the phase's seconds."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.serve.export import OUTPUT_FIELDS, pipeline_on, save_exported
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    art = root / "artifact"
+    wav = (np.random.default_rng(41).standard_normal((1, pipe.cfg.audio.num_samples))
+           * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    save_exported(str(art), pipe, 1, platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    meta = json.loads((art / "meta.json").read_text())
+    sizes = {f.name: f.stat().st_size for f in sorted(art.iterdir())}
+    print(f"export platforms: save_exported at batch 1 for {meta['platforms']} (default "
+          f"{meta['device']}) in {export_s:.1f} s, files {sizes}")
+    if meta["platforms"] != ["cuda", "cpu"] or meta["device"] != "cuda":
+        fail(f"export platforms: meta {meta['platforms']}, default {meta['device']}")
+    refs = {"wav": wav}
+    for f, v in zip(OUTPUT_FIELDS, pipe.explain(torch.from_numpy(wav).cuda())):
+        refs[f"cuda_{f}"] = v.float().cpu().numpy()
+    t0 = time.perf_counter()
+    for f, v in zip(OUTPUT_FIELDS, pipeline_on(pipe, "cpu").explain(wav)):
+        refs[f"cpu_{f}"] = v.float().numpy()
+    cpu_eager_s = time.perf_counter() - t0
+    np.savez(root / "platforms_ref.npz", **refs)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--platforms-child",
+                          str(art), str(root)], capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:])
+        fail(f"export platforms: the artifact's process exited {res.returncode}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"export platforms: artifact process ({child_s:.1f} s): " + json.dumps(got))
+    want = launches_of(a=pipe.cfg.embedder.num_layers, b=1, c=2)
+    if got["cuda"]["launches"] != want:
+        fail(f"export platforms: the cuda graph launched {got['cuda']['launches']} (want {want})")
+    if any(got["cpu"]["launches"].values()):
+        fail(f"export platforms: the cpu graph launched {got['cpu']['launches']}")
+    if got["cpu"]["device"] != "cpu" or got["imported_model_modules"]:
+        fail(f"export platforms: cpu graph on {got['cpu']['device']}, model modules "
+             f"{got['imported_model_modules']}")
+    for f, e in got["cuda"]["errors"].items():
+        if not e["bit_equal"]:
+            fail(f"export platforms: the cuda graph's {f} is not bit-equal to the eager "
+                 f"explain ({e['max_abs_err']:.3e})")
+    for f, e in got["cpu"]["errors"].items():
+        if e["max_abs_err"] > 1e-6:
+            fail(f"export platforms: the cpu graph's {f} {e['max_abs_err']:.3e} from the eager "
+                 f"CPU explain (bar 1e-6)")
+    equal = all(e["bit_equal"] for e in got["cpu"]["errors"].values())
+    print(f"export platforms: cuda graph bit-equal; cpu graph bit-equal to the eager CPU "
+          f"explain: {equal}; eager CPU explain {cpu_eager_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"artifact_platforms_cuda": got["cuda"]["launches"]}
+
+
 def run_cli(torch, root: Path, wav_root: Path) -> dict:
     """`cli.main([...])` in-process for each of the 13 subcommands at full
     width with the default flags (bf16 embedder, f32 UNet) over the datagen
@@ -3725,6 +3836,7 @@ def main() -> int:
     pipe = build_pipeline(torch, entry)
     paths.update(run_serve(torch, pipe))
     paths.update(run_export(torch, pipe, build / "export_smoke"))
+    paths.update(run_export_platforms(torch, pipe, build / "export_platforms"))
     del pipe
     torch.cuda.empty_cache()
     frontend_bias_adds(torch, cfg)
@@ -3780,4 +3892,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--artifact-child"]:
         sys.exit(artifact_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--platforms-child"]:
+        sys.exit(platforms_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -3,7 +3,7 @@
 NVIDIA card and print its result.
 
     python3 closed_loop_protocol.py [--seed 0] [--f32-embedder] [--reference-draw]
-        [--l1-scale X] [--save-decoder PATH] [--probe] [--out PATH]
+        [--l1-scale X] [--save-decoder PATH] [--probe] [--head-probe] [--out PATH]
 
 The protocol is the command line behind the JAX package's
 `docs/closed_loop_anyband` result (`cli closed-loop --anyband --scan-layers
@@ -38,6 +38,18 @@ in training mode, as the step runs it), (iv) that forward with BatchNorm on
 its running statistics; and, per BatchNorm layer, the relative gap between
 the running statistics and the mean of the last epoch's batch statistics.
 The running statistics are restored after (ii) and (iii).
+
+`--head-probe` (with `--reference-draw`) stops after epoch 1 and measures
+how far epoch 1's `l_out` follows the detector head (`head_probe`): the
+detector corpus and the evaluation clips embedded four ways the protocol's
+embedder could legitimately take (bf16 at batches 16, 8 and 24, and the f32
+embedder at 16), each set fitted by the port's `train_detector`, and epoch 1
+run from the same untrained decoder with each head. Per head it prints the
+embeddings' distance from the protocol's own, |w|, the median |logit|, the
+L-BFGS steps and the distance to the float64 optimum, the cosine to the
+protocol's head, the split and held-out accuracy and EER, and epoch 1's
+`l_out` (over the record's at seed 0); last, the largest `l_out` over the
+smallest.
 
 It prints the card's name and power limit, each epoch's record as it is
 finalised, and last one JSON line: the detector's accuracy and EER, its
@@ -243,6 +255,135 @@ def float64_fit(torch, x, y, max_iter: int, device="cuda"):
             objective)
 
 
+def fit_summary(torch, x, y, params: dict) -> dict:
+    """A fitted detector head on its corpus (x, y): the rows, features and
+    training rows of its split, |w|, the median |logit| on the training
+    rows, and its distance to the same objective fitted in float64."""
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.train import train_logreg
+
+    x_tr, _, y_tr, _ = train_logreg.stratified_split(x, y)
+    w = params["weight"].cpu().numpy()[:, 0].astype(np.float64)
+    b = float(params["bias"].cpu()[0])
+    z = x_tr.astype(np.float64) @ w + b
+    t0 = time.perf_counter()
+    steps, gnorm, w64, b64, objective = float64_fit(torch, x_tr, y_tr, 5000,
+                                                    params["weight"].device)
+    best = objective(w64, b64)
+    return {"rows": int(x.shape[0]), "features": int(x.shape[1]), "train_rows": int(len(x_tr)),
+            "w_norm": float(np.linalg.norm(w)),
+            "median_abs_logit_train": float(np.median(np.abs(z))),
+            "float64_reference": {
+                "steps": steps, "gnorm": gnorm, "seconds": time.perf_counter() - t0,
+                "objective": best, "fit_objective_rel": (objective(w, b) - best) / best,
+                "w_norm": float(np.linalg.norm(w64)),
+                "cosine": float(w @ w64 / (np.linalg.norm(w) * np.linalg.norm(w64)))}}
+
+
+# the head probe's ways to embed the detector corpus: (name, embedder dtype,
+# batch); the first is the protocol's own
+PROBE_WAYS = (("bf16_batch16", "bfloat16", BATCH_SIZE), ("bf16_batch8", "bfloat16", 8),
+              ("bf16_batch24", "bfloat16", 24), ("f32_batch16", "float32", BATCH_SIZE))
+
+
+def head_probe(torch, pipes: dict, seed: int, record_l_out: float | None) -> dict:
+    """How far epoch 1's `l_out` follows the detector head. The protocol's
+    first stages as `run_closed_loop` takes them (the same rng draws: the
+    training and evaluation corpora, the detector corpus, then the first
+    epoch's shuffle), with the detector corpus and the evaluation clips
+    embedded each way of `PROBE_WAYS` (`pipes` maps an embedder dtype to a
+    pipeline holding the same weights), each set fitted by the port's
+    `train_detector`, and epoch 1 (one `train_addvisor` epoch, batches of
+    16) run from the same untrained decoder with each head on the bf16
+    pipeline. Ways whose embeddings are bit-equal to an earlier way's are
+    named and not fitted again."""
+    import copy
+
+    import numpy as np
+
+    from xai_audio_deepfakes_tpu_torch.data.synthetic import (
+        detector_corpus_anyband,
+        make_anyband_corpus,
+    )
+    from xai_audio_deepfakes_tpu_torch.train import closed_loop, train_logreg
+    from xai_audio_deepfakes_tpu_torch.train.train_addvisor import train_addvisor
+
+    pipe = pipes["bfloat16"]
+    cfg, dev = pipe.cfg, pipe.device
+    n, sc = cfg.audio.num_samples, cfg.stft
+    rng = np.random.default_rng(seed)
+    real_tr, manip_tr, bands_tr = make_anyband_corpus(rng, N_TRAIN, n, sc, 1000.0, 8000.0,
+                                                      NOISE_RMS, device=dev)
+    real_ev, manip_ev, _ = make_anyband_corpus(rng, N_EVAL, n, sc, 1000.0, 8000.0, NOISE_RMS,
+                                               device=dev)
+    det_wavs, y = detector_corpus_anyband(real_tr, manip_tr, sc, bands_tr, 1000.0, 8000.0,
+                                          rng=rng, noise_rms=NOISE_RMS, device=dev)
+    y_ev = np.concatenate([np.zeros(N_EVAL, np.int64), np.ones(N_EVAL, np.int64)])
+    shuffle_rng = copy.deepcopy(rng)  # where the first epoch's shuffle finds it
+    untrained = copy.deepcopy(pipe.unet.state_dict())
+
+    def epoch_1(head: dict) -> dict:
+        pipe.unet.load_state_dict(untrained)
+        pipe.logreg = head
+        r, order, recs = copy.deepcopy(shuffle_rng), np.arange(N_TRAIN), []
+
+        def batches():
+            r.shuffle(order)
+            return [manip_tr[order[i:i + BATCH_SIZE]]
+                    for i in range(0, N_TRAIN - BATCH_SIZE + 1, BATCH_SIZE)]
+
+        train_addvisor(pipe, batches, num_epochs=1, log_fn=recs.append)
+        return recs[0]
+
+    ways: dict = {}
+    embeds: dict = {}
+    for name, dtype, batch in PROBE_WAYS:
+        t0 = time.perf_counter()
+        x = closed_loop.embed_mean(pipes[dtype], det_wavs, batch)
+        x_ev = np.concatenate([closed_loop.embed_mean(pipes[dtype], w, batch)
+                               for w in (real_ev, manip_ev)])
+        embed_s = time.perf_counter() - t0
+        way: dict = {"dtype": dtype, "batch": batch, "embed_s": embed_s}
+        same = next((k for k, (a, b) in embeds.items()
+                     if np.array_equal(a, x) and np.array_equal(b, x_ev)), None)
+        embeds[name] = (x, x_ev)
+        if same is not None:
+            ways[name] = {**way, "bit_equal_to": same}
+            print(json.dumps({"head_probe": name, **ways[name]}), flush=True)
+            continue
+        x0, x0_ev = embeds[PROBE_WAYS[0][0]]
+        both, both0 = np.concatenate([x, x_ev]), np.concatenate([x0, x0_ev])
+        diff = np.abs(both.astype(np.float64) - both0)
+        way["embedding_vs_protocol"] = {
+            "max_rel": float(diff.max() / np.abs(both0).max()),
+            "mean_rel": float(diff.mean() / np.abs(both0).mean())}
+        lbfgs: list = []
+        t0 = time.perf_counter()
+        head, split = train_logreg.train_detector(x, y, log_fn=lbfgs.append, device=dev)
+        way["fit_s"] = time.perf_counter() - t0
+        way["lbfgs"] = next(r["lbfgs"] for r in lbfgs if "lbfgs" in r)
+        way.update(fit_summary(torch, x, y, head))
+        w = head["weight"].cpu().numpy()[:, 0].astype(np.float64)
+        w0 = ways[PROBE_WAYS[0][0]]["w"] if ways else w
+        way["cosine_to_protocol_head"] = float(w @ w0 / (np.linalg.norm(w) * np.linalg.norm(w0)))
+        way["split"] = split
+        way["held_out"] = train_logreg.evaluate_logreg(head, x_ev, y_ev)
+        t0 = time.perf_counter()
+        rec = epoch_1(head)
+        way["epoch_1_s"] = time.perf_counter() - t0
+        way["epoch_1"] = {k: rec[k] for k in ("loss", "l_in", "l_out", "l1", "w")}
+        if record_l_out is not None:
+            way["l_out_over_record"] = rec["l_out"] / record_l_out
+        print(json.dumps({"head_probe": name, **way}), flush=True)
+        ways[name] = {**way, "w": w}
+    l_outs = [v["epoch_1"]["l_out"] for v in ways.values() if "epoch_1" in v]
+    for v in ways.values():
+        v.pop("w", None)
+    return {"rows": int(len(y)), "ways": ways, "record_l_out": record_l_out,
+            "l_out_max_over_min": max(l_outs) / min(l_outs)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -256,8 +397,13 @@ def main() -> int:
                     help="write the trained UNet's state dict here")
     ap.add_argument("--probe", action="store_true",
                     help="the BatchNorm-mode probe on the after_train clips")
+    ap.add_argument("--head-probe", action="store_true",
+                    help="stop after epoch 1: the detector head fitted on four embeddings "
+                         "of the same corpus, epoch 1 run with each (needs --reference-draw)")
     ap.add_argument("--out", default=None, help="write the result JSON here")
     args = ap.parse_args()
+    if args.head_probe and not args.reference_draw:
+        ap.error("--head-probe needs --reference-draw")
 
     import torch
 
@@ -294,12 +440,29 @@ def main() -> int:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         load_jax_params(pipe, params)
+        if args.head_probe:
+            f32 = cfg.replace(embedder=dataclasses.replace(cfg.embedder, dtype="float32",
+                                                           remat=False))
+            pipe_f32 = closed_loop.ADDvisorPipeline(f32, device="cuda", seed=args.seed)
+            load_jax_params(pipe_f32, params)
         del params
         torch.cuda.synchronize()
         phases["reference_draw"], phases["load_jax_params"] = t2 - t1, time.perf_counter() - t2
         t0 += time.perf_counter() - t1  # wall_s: the build and the loop, as without the replay
         print(json.dumps({"reference_draw_s": phases["reference_draw"],
                           "load_jax_params_s": phases["load_jax_params"]}), flush=True)
+    if args.head_probe:
+        t1 = time.perf_counter()
+        out = {"device": {"name_power_limit": smi, "kind": torch.cuda.get_device_name(0)},
+               "args": vars(args),
+               **head_probe(torch, {"bfloat16": pipe, "float32": pipe_f32}, args.seed,
+                            record[1][0]["l_out"] if record is not None else None),
+               "head_probe_s": time.perf_counter() - t1, "phase_s": phases}
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, indent=1))
+        print(json.dumps(out))
+        return 0
     kept = (record_batch_stats(torch, pipe.unet, N_TRAIN // BATCH_SIZE)
             if args.probe else None)
 
@@ -329,22 +492,7 @@ def main() -> int:
 
     def recorded_train_detector(x, y, **kw):
         params, metrics = train_detector(x, y, **kw)
-        x_tr, _, y_tr, _ = train_logreg.stratified_split(x, y)
-        w = params["weight"].cpu().numpy()[:, 0].astype(np.float64)
-        z = x_tr.astype(np.float64) @ w + float(params["bias"].cpu()[0])
-        fit.update(rows=int(x.shape[0]), features=int(x.shape[1]), train_rows=int(len(x_tr)),
-                   w_norm=float(np.linalg.norm(w)),
-                   median_abs_logit_train=float(np.median(np.abs(z))))
-        t0 = time.perf_counter()
-        steps, gnorm, w64, b64, objective = float64_fit(torch, x_tr, y_tr, 5000,
-                                                        params["weight"].device)
-        best = objective(w64, b64)
-        fit["float64_reference"] = {
-            "steps": steps, "gnorm": gnorm, "seconds": time.perf_counter() - t0,
-            "objective": best,
-            "fit_objective_rel": (objective(w, float(params["bias"].cpu()[0])) - best) / best,
-            "w_norm": float(np.linalg.norm(w64)),
-            "cosine": float(w @ w64 / (np.linalg.norm(w) * np.linalg.norm(w64)))}
+        fit.update(fit_summary(torch, x, y, params))
         return params, metrics
 
     closed_loop.train_detector = recorded_train_detector

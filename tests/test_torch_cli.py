@@ -39,7 +39,6 @@ from xai_audio_deepfakes_tpu_torch.train import artifacts
 DIFFERENCES = {
     ("", "platform"): "--device {cuda,cpu}: where the pipeline runs, never a fallback",
     ("", "device"): "(the port's, in place of --platform)",
-    ("export", "platforms"): "gone: an artifact runs on the device it was exported for",
 }
 NAMES = ("a.wav", "b.wav", "c.wav", "d.wav")
 

@@ -12,6 +12,7 @@ import json
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -34,6 +35,7 @@ from xai_audio_deepfakes_tpu_torch.ops.stft import istft_plain, stft_plain
 from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 from xai_audio_deepfakes_tpu_torch.serve import export
 from xai_audio_deepfakes_tpu_torch.serve.api import start_api_server
+from xai_audio_deepfakes_tpu_torch.serve.export import OUTPUT_FIELDS
 
 ROOT = Path(__file__).resolve().parent.parent
 BATCH = 2
@@ -306,3 +308,90 @@ def test_artifact_runs_only_on_its_device(art_dir, tmp_path):
     (cuda_dir / "meta.json").write_text(json.dumps({**meta, "device": "cuda"}))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         export.load_exported(str(cuda_dir))
+
+
+# ---------------------------------------------------------------------------
+# several platforms (`export --platforms`)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cpu_platform_dir(pipe, tmp_path_factory):
+    out = tmp_path_factory.mktemp("platforms") / "art"
+    export.save_exported(str(out), pipe, BATCH, platforms=("cpu",))
+    return out
+
+
+def test_platforms_cpu_writes_todays_artifact(cpu_platform_dir, art_dir):
+    """platforms=("cpu",) writes the same three files as the default, and
+    meta.json lists the platforms, as the JAX package's does; so does the
+    default's."""
+    assert sorted(p.name for p in cpu_platform_dir.iterdir()) == ["explain.pt2", "meta.json",
+                                                                  "params.npz"]
+    meta = json.loads((cpu_platform_dir / "meta.json").read_text())
+    assert meta["platforms"] == ["cpu"] and meta["device"] == "cpu"
+    assert json.loads((art_dir / "meta.json").read_text())["platforms"] == ["cpu"]
+
+
+def test_cpu_graph_matches_jax_artifact(cpu_platform_dir, jax_art, wav):
+    """The CPU graph loaded by name against the JAX package's artifact at
+    the slice bars."""
+    art = export.load_exported(str(cpu_platform_dir), device="cpu")
+    assert art.device == torch.device("cpu")
+    got, want = art(wav), jax_art(wav)
+    for f, bar in BARS.items():
+        if bar is not None:
+            np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                       atol=bar, err_msg=f)
+
+
+def test_platforms_cuda_without_a_card_raises_and_writes_nothing(pipe, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cuda graph would be traced")
+    out = tmp_path / "art"
+    with pytest.raises(ValueError, match="CUDA is not available here.*--platforms cpu"):
+        export.save_exported(str(out), pipe, BATCH, platforms=("cuda", "cpu"))
+    assert not out.exists()
+    with pytest.raises(ValueError, match="unknown platforms"):
+        export.save_exported(str(out), pipe, BATCH, platforms=("tpu",))
+
+
+def test_pipeline_on_another_device_holds_the_same_weights(pipe, wav):
+    """The pipeline a graph of another device is traced on: the same
+    configuration and weights (from a pipeline that names another device
+    but holds CPU tensors, so that the test needs no card), hence the same
+    explain bit for bit; on the pipeline's own device, the pipeline."""
+    assert export.pipeline_on(pipe, "cpu") is pipe
+    named = types.SimpleNamespace(**{k: getattr(pipe, k) for k in (
+        "cfg", "encoder", "unet", "feat_decoder", "logreg", "quant_scales")},
+        device=torch.device("cuda"))
+    twin = export.pipeline_on(named, "cpu")
+    assert twin is not pipe and twin.device == torch.device("cpu")
+    for f, a, b in zip(OUTPUT_FIELDS, twin.explain(wav), pipe.explain(wav)):
+        assert torch.equal(a, b), f
+
+
+def test_cli_export_platforms_reaches_save_exported(pipe, tmp_path, monkeypatch):
+    """`export --platforms cuda,cpu` hands ("cuda", "cpu") to save_exported;
+    without a card it raises there and writes nothing."""
+    from xai_audio_deepfakes_tpu_torch.cli import __main__ as cli
+
+    monkeypatch.setattr(cli, "_build_pipeline", lambda args: pipe)
+    seen: list = []
+    real = export.save_exported
+
+    def spy(*a, **kw):
+        seen.append(kw["platforms"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(export, "save_exported", spy)
+    out = tmp_path / "art"
+    argv = ["--device", "cpu", "export", "--batch-size", str(BATCH), "--out", str(out)]
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="CUDA is not available"):
+            cli.main(argv + ["--platforms", "cuda,cpu"])
+        assert seen == [("cuda", "cpu")] and not out.exists()
+    monkeypatch.setattr(export, "export_explain", lambda *a, **k: pytest.fail("traced"))
+    with pytest.raises(ValueError, match="unknown platforms"):
+        cli.main(argv + ["--platforms", "cpu,tpu"])
+    assert seen[-1] == ("cpu", "tpu")

@@ -13,12 +13,14 @@ flag, over the port's modules):
 
 The differences from the JAX CLI, and only these: the global `--platform`
 is `--device {cuda,cpu}` (default `$ADDVISOR_DEVICE`, else cuda; without a
-card, cuda raises, and nothing falls back to the CPU); `export --platforms`
-is gone (an artifact runs on the device it was exported for); the mesh
-flags of `train`, `eval` and `closed-loop` lay a (data, stage, model) mesh
-over the processes of a `torchrun` launch (NCCL on the card), whose
-product must be the world size, and rank 0 alone prints, the other ranks
-writing their files under `<out>/rank<r>`:
+card, cuda raises, and nothing falls back to the CPU), and `export
+--platforms` names devices (`cuda,cpu`: one graph traced on each, the
+`--device` pipeline's own the default; `serve-api --exported DIR --device
+cpu` serves the CPU graph); the mesh flags of `train`, `eval` and
+`closed-loop` lay a (data, stage, model) mesh over the processes of a
+`torchrun` launch (NCCL on the card), whose product must be the world
+size, and rank 0 alone prints, the other ranks writing their files under
+`<out>/rank<r>`:
 
   torchrun --nproc-per-node 4 -m xai_audio_deepfakes_tpu_torch.cli eval \
       --metadata m.txt --root d --model-parallel 2 --batch-size 8
@@ -892,6 +894,7 @@ def cmd_export(args):
     (graph + weights + meta), see `serve/export.py`."""
     from xai_audio_deepfakes_tpu_torch.serve.export import save_exported
 
+    platforms = tuple(p for p in args.platforms.split(",") if p) or None
     pipe = _build_pipeline(args)
     out = save_exported(
         args.out,
@@ -899,13 +902,14 @@ def cmd_export(args):
         batch_size=args.batch_size,
         decoder=args.decoder,
         masking=args.masking,
+        platforms=platforms,
     )
     sizes = {
         f: os.path.getsize(os.path.join(out, f)) for f in sorted(os.listdir(out))
     }
     with open(os.path.join(out, "meta.json")) as f:
         meta = json.load(f)
-    print(json.dumps({"artifact": out, "device": meta["device"],
+    print(json.dumps({"artifact": out, "device": meta["device"], "platforms": meta["platforms"],
                       "batch_size": args.batch_size, "files": sizes}))
     return 0
 
@@ -1156,6 +1160,11 @@ def build_parser() -> argparse.ArgumentParser:
     _common(p)
     p.add_argument("--decoder", default="unet", choices=["unet", "features"])
     p.add_argument("--masking", default="log1p", choices=["linear", "log1p"])
+    p.add_argument(
+        "--platforms", default="",
+        help="comma-separated devices to trace a graph for (cuda, cpu; default: --device's); "
+             "cuda needs a card",
+    )
     p.set_defaults(fn=cmd_export)
     return parser
 

@@ -11,11 +11,13 @@ the same launches; the loader imports the op registrations and nothing of
 
 Layout of an artifact directory:
 
-    explain.pt2   the graph (`torch.export.save`), without weights
+    explain.pt2   the graph (`torch.export.save`), without weights, for
+                  the default device; explain.<device>.pt2 for each other
     params.npz    weights, flattened with '/' (bf16 ones stored as f32,
                   which is exact; meta.json keeps each one's dtype)
     meta.json     batch size, clip samples, sample rate, decoder, masking,
-                  the device exported for, torch's version
+                  the default device and every device exported for
+                  (`platforms`), torch's version
 
 The weights stay OUTSIDE the graph, as call arguments (the exported
 program's `state_dict` is empty), as in the JAX package: a retrained mask
@@ -24,11 +26,17 @@ decoder drops in by replacing params.npz alone, or in memory through
 `ExportedExplain` names again (`OUTPUT_FIELDS`), so the loader needs no
 output type registered.
 
-An artifact runs on the device it was exported for: `meta.json` records it,
-and loading it for another raises. The JAX package exports one graph for
-several lowering platforms (`platforms`); here the graph holds the device's
-own choices (an artifact traced on the CPU runs the kernels' plain
-versions), so export on the card what is to run on the card.
+A graph holds its device's own choices (one traced on the CPU runs the
+kernels' plain versions, which are the `addv::*` ops' CPU implementations),
+so an artifact holds one graph per device it was exported for, as the JAX
+package's holds one lowering per platform (`platforms`): `explain.pt2` for
+the default device and `explain.<device>.pt2` for each other, every graph
+taking the same params.npz. `save_exported(platforms=("cuda", "cpu"))`
+traces each on a pipeline of that device holding the same weights;
+`platforms=None` exports the pipeline's own device alone. `meta.json` lists
+`platforms` and names the default `device`; `load_exported(dir, device)`
+loads the graph of `device` (default: that one) and raises for a device the
+artifact lacks. Exporting for `cuda` needs a card: nothing falls back.
 """
 
 from __future__ import annotations
@@ -186,17 +194,61 @@ def export_explain(pipe, batch_size: int, decoder: str = "unet",
     return program, flat
 
 
+def graph_file(platform: str, default: str) -> str:
+    """The file of `platform`'s graph in an artifact whose default device
+    is `default`."""
+    return _GRAPH_FILE if platform == default else f"explain.{platform}.pt2"
+
+
+def pipeline_on(pipe, device: str):
+    """`pipe` itself on its own device, else a pipeline of the same
+    configuration on `device` holding its weights (every module's state,
+    the detector head and the static int8 scales)."""
+    from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
+
+    if torch.device(device).type == pipe.device.type:
+        return pipe
+    other = ADDvisorPipeline(pipe.cfg, device=device)
+    for name in ("encoder", "unet", "feat_decoder"):
+        getattr(other, name).load_state_dict(getattr(pipe, name).state_dict())
+    dev = other.device
+    other.logreg = {k: v.detach().to(dev) for k, v in pipe.logreg.items()}
+    if pipe.quant_scales is not None:
+        other.quant_scales = {k: torch.as_tensor(v).to(dev) for k, v in pipe.quant_scales.items()}
+    return other
+
+
 def save_exported(
     out_dir: str,
     pipe,
     batch_size: int,
     decoder: str = "unet",
     masking: MaskingConvention | str | None = None,
+    platforms: tuple[str, ...] | None = None,
 ) -> str:
-    """Write a self-contained serving artifact directory; returns its path."""
+    """Write a self-contained serving artifact directory; returns its path.
+    `platforms` (default: the pipeline's own device) names the devices to
+    trace a graph for; the pipeline's device, if among them, is the
+    default. Asking for cuda without a card raises before anything is
+    written."""
+    own = pipe.device.type
+    platforms = tuple(dict.fromkeys(platforms or (own,)))
+    bad = [p for p in platforms if p not in ("cuda", "cpu")]
+    if bad:
+        raise ValueError(f"unknown platforms {bad}: an artifact holds graphs for cuda and cpu")
+    if "cuda" in platforms and not torch.cuda.is_available():
+        raise ValueError(
+            f"platforms {platforms} requested, but CUDA is not available here: a cuda graph is "
+            "traced on the card. Export per-platform artifacts instead: --platforms cpu here "
+            "(cli --device cpu export --platforms cpu), and the cuda one on a machine with a "
+            "card (cli export --platforms cuda,cpu).")
+    default = own if own in platforms else platforms[0]
+    graphs = {p: export_explain(pipeline_on(pipe, p), batch_size, decoder, masking)
+              for p in platforms}
     os.makedirs(out_dir, exist_ok=True)
-    program, flat = export_explain(pipe, batch_size, decoder, masking)
-    torch.export.save(program, os.path.join(out_dir, _GRAPH_FILE))
+    for p, (program, _) in graphs.items():
+        torch.export.save(program, os.path.join(out_dir, graph_file(p, default)))
+    flat = graphs[default][1]
     np.savez(os.path.join(out_dir, _PARAMS_FILE), **{k: _to_numpy(v) for k, v in flat.items()})
     eff_masking = MaskingConvention(masking) if masking is not None else pipe.cfg.masking
     meta = {
@@ -206,7 +258,8 @@ def save_exported(
         "clip_seconds": pipe.cfg.audio.clip_seconds,
         "decoder": decoder,
         "masking": str(getattr(eff_masking, "value", eff_masking)),
-        "device": pipe.device.type,
+        "device": default,
+        "platforms": list(platforms),
         "torch_version": torch.__version__,
         "param_dtypes": {k: str(v.dtype).removeprefix("torch.") for k, v in flat.items()},
     }
@@ -222,15 +275,15 @@ def save_exported(
 
 class ExportedExplain:
     """A loaded serving artifact: `__call__(wav[B, N]) -> ExplainOutput`-shaped
-    tuple, no model code involved. The weights, placed on the artifact's
+    tuple, no model code involved. The weights, placed on the graph's
     device once, can be swapped with `with_params`. It serves as the `pipe`
     of `serve/api.py` (`cfg.audio`, `device`)."""
 
-    def __init__(self, program, params: dict, meta: dict):
+    def __init__(self, program, params: dict, meta: dict, device: str | None = None):
         self._program = program
         self._module = program.module()
         self.meta = meta
-        self.device = torch.device(meta["device"])
+        self.device = torch.device(device or meta["device"])
         self.params = _place(params, meta["param_dtypes"], self.device)
         self.batch_size = int(meta["batch_size"])
         self.num_samples = int(meta["num_samples"])
@@ -251,12 +304,13 @@ class ExportedExplain:
     def with_params(self, params: dict) -> "ExportedExplain":
         """The same graph with other weights (nested as `explain_params`
         gives them, or flat), placed on the device once."""
-        return ExportedExplain(self._program, params, self.meta)
+        return ExportedExplain(self._program, params, self.meta, self.device.type)
 
 
 def load_exported(artifact_dir: str, device: str | torch.device | None = None) -> ExportedExplain:
-    """Load an artifact for the device it was exported for. `device`, when
-    given, must be that device; a CUDA artifact without CUDA raises."""
+    """Load an artifact's graph for `device` (default: the device it was
+    exported on). A device it holds no graph for raises, and so does a CUDA
+    graph without CUDA."""
     # the kernels' registered ops, which the graph calls (no model code)
     from xai_audio_deepfakes_tpu_torch.ops import (  # noqa: F401
         attention,
@@ -267,14 +321,16 @@ def load_exported(artifact_dir: str, device: str | torch.device | None = None) -
 
     with open(os.path.join(artifact_dir, _META_FILE)) as f:
         meta = json.load(f)
-    want = torch.device(meta["device"])
-    if device is not None and torch.device(device).type != want.type:
+    default = meta["device"]
+    platforms = meta.get("platforms", [default])
+    want = torch.device(device).type if device is not None else default
+    if want != default and want not in platforms:
         raise ValueError(
-            f"{artifact_dir} was exported for {want.type} and runs only there "
-            f"(asked for {torch.device(device).type}): export it on that device")
-    if want.type == "cuda" and not torch.cuda.is_available():
+            f"{artifact_dir} was exported for {', '.join(platforms)} and runs only there "
+            f"(asked for {want}): export it with --platforms {want}")
+    if want == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{artifact_dir} was exported for cuda, and CUDA is not available")
-    program = torch.export.load(os.path.join(artifact_dir, _GRAPH_FILE))
+    program = torch.export.load(os.path.join(artifact_dir, graph_file(want, default)))
     with np.load(os.path.join(artifact_dir, _PARAMS_FILE)) as z:
         params = {k: z[k] for k in z.files}
-    return ExportedExplain(program, params, meta)
+    return ExportedExplain(program, params, meta, want)

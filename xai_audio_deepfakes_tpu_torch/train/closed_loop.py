@@ -76,6 +76,14 @@ def _batches(wavs: np.ndarray, batch_size: int):
         yield chunk, k
 
 
+def embed_mean(pipe: ADDvisorPipeline, wavs: np.ndarray, batch_size: int) -> np.ndarray:
+    """The detector's input: each clip's time-mean-pooled features [N, H]
+    f32 on the host, embedded `batch_size` clips at a time (a ragged tail
+    padded as `_batches` pads it)."""
+    return np.concatenate([pipe.features(chunk).mean(dim=1)[:k].cpu().numpy()
+                           for chunk, k in _batches(wavs, batch_size)])
+
+
 def evaluate_explanations(
     pipe: ADDvisorPipeline,
     wavs: np.ndarray,
@@ -193,19 +201,16 @@ def run_closed_loop(
 
     # the detector: real = 0 vs manipulated = 1 on mean-pooled embeddings,
     # with band-filtered augmentation so that its decision survives masking
-    def embed_all(wavs: np.ndarray) -> np.ndarray:
-        return np.concatenate([pipe.features(chunk).mean(dim=1)[:k].cpu().numpy()
-                               for chunk, k in _batches(wavs, batch_size)])
-
     if anyband:
         det_wavs, y = detector_corpus_anyband(real_tr, manip_tr, sc, bands_tr, band_width, f_max,
                                               rng=rng, noise_rms=noise_rms, device=dev)
     else:
         det_wavs, y = detector_corpus(real_tr, manip_tr, sc, band[0], band[1], rng=rng,
                                       device=dev)
-    det_params, det_metrics = train_detector(embed_all(det_wavs), y, log_fn=log_fn, device=dev)
+    det_params, det_metrics = train_detector(embed_mean(pipe, det_wavs, batch_size), y,
+                                             log_fn=log_fn, device=dev)
     # held out: the evaluation corpus, un-augmented
-    x_ev = np.concatenate([embed_all(real_ev), embed_all(manip_ev)])
+    x_ev = np.concatenate([embed_mean(pipe, w, batch_size) for w in (real_ev, manip_ev)])
     y_ev = np.concatenate([np.zeros(len(real_ev), np.int64), np.ones(len(manip_ev), np.int64)])
     det_holdout = evaluate_logreg(det_params, x_ev, y_ev)
     pipe.logreg = det_params
