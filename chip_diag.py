@@ -18,6 +18,13 @@ the readings that `PERF.md` cites for it.
         the f32 UNet; `--init normal` draws the weights from the untruncated
         N(0, 1/fan_in) the port used before `models/init.py::lecun_normal_`.
 
+    python3 chip_diag.py unet-bar [--seeds 24] [--out F]
+        the derivation of check (ii)'s per-draw bar on a bf16 UNet's outputs
+        (`chip_smoke.ii_bars`): `chip_smoke.tiny_int8_case` of each tiny
+        int8 configuration with the bf16 UNet at weight seeds 0..N-1, per
+        seed and output the card's deviation from the pinned CPU over the
+        per-draw bar and over the 0.4x bf16 bar (`unet_bar`).
+
     python3 chip_diag.py detector-fits [--seed 2] [--out F] DIR [DIR ...]
         the anyband protocol's detector corpus at `--seed`
         (`closed_loop_protocol.py`'s sizes and configuration, built and
@@ -308,6 +315,51 @@ def int8_sweep(torch, seeds: int = 12, init: str = "lecun_normal") -> dict:
     return result
 
 
+def unet_bar(torch, seeds: int = 24) -> dict:
+    """Per seed 0..seeds-1 and tiny int8 configuration with the bf16 UNet:
+    for each output of the UNet (mask, both waveforms) the card's mean and
+    max deviation from the pinned CPU explain over the per-draw bar's
+    (`ratio`: the larger of the two; the bar holds at 1) and over the bf16
+    bars' (`ratio_0.4x`), with checks (i), (ii) and (iii) as
+    `tiny_int8_case` holds them at that seed; then the pass counts and the
+    largest ratios."""
+    import chip_smoke
+
+    result: dict = {}
+    for case, (emb, un) in chip_smoke.TINY_INT8_CASES.items():
+        if un.get("dtype") != "bfloat16":
+            continue
+        rows = []
+        for seed in range(seeds):
+            res = chip_smoke.tiny_int8_case(torch, emb, un, seed=seed)
+            row = {"seed": seed, "i": res["i"], "ii": res["ii"], "iii": res["iii"], "outputs": {}}
+            for key, pd in res["ii_per_draw"].items():
+                old = res["ii_0.4x"][key]
+                row["outputs"][key] = {
+                    "mean_ratio": pd["mean"] / pd["mean_bar"], "max_ratio": pd["max"] / pd["max_bar"],
+                    "mean_ratio_0.4x": old["mean"] / old["mean_bar"],
+                    "max_ratio_0.4x": old["max"] / old["max_bar"], "per_draw": pd}
+            outs = row["outputs"].values()
+            row["ratio"] = max(max(o["mean_ratio"], o["max_ratio"]) for o in outs)
+            row["ratio_0.4x"] = max(max(o["mean_ratio_0.4x"], o["max_ratio_0.4x"]) for o in outs)
+            row["per_draw_holds"] = all(pd["holds"] for pd in res["ii_per_draw"].values())
+            row["bf16_bars_hold"] = all(res["ii_0.4x"][k]["holds"] for k in res["ii_per_draw"])
+            rows.append(row)
+            print(f"unet bar, {case}, seed {seed}: per-draw ratio {row['ratio']:.3f} "
+                  f"({'holds' if row['per_draw_holds'] else 'MISSES'}), 0.4x ratio "
+                  f"{row['ratio_0.4x']:.3f}; per output (mean, max) "
+                  + json.dumps({k: [round(o["mean_ratio"], 4), round(o["max_ratio"], 4)]
+                                for k, o in row["outputs"].items()}), flush=True)
+        summary = {"per_draw_holds": sum(r["per_draw_holds"] for r in rows),
+                   "bf16_bars_hold": sum(r["bf16_bars_hold"] for r in rows),
+                   "checks_hold": sum(r["i"] and r["ii"] and r["iii"] for r in rows),
+                   "largest_ratio": max(r["ratio"] for r in rows),
+                   "largest_ratio_0.4x": max(r["ratio_0.4x"] for r in rows), "seeds": seeds}
+        print(f"unet bar, {case}: " + json.dumps(summary), flush=True)
+        result[case] = {"summary": summary, "per_seed": rows}
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -319,6 +371,9 @@ def main(argv=None) -> int:
     s.add_argument("--seeds", type=int, default=12)
     s.add_argument("--init", choices=("lecun_normal", "normal"), default="lecun_normal")
     s.add_argument("--out")
+    b = sub.add_parser("unet-bar")
+    b.add_argument("--seeds", type=int, default=24)
+    b.add_argument("--out")
     f = sub.add_parser("detector-fits")
     f.add_argument("--seed", type=int, default=2)
     f.add_argument("--out")
@@ -336,6 +391,8 @@ def main(argv=None) -> int:
         return remat_off(args.dirs)
     if args.cmd == "unet-trace":
         res = unet_trace(torch, args.seeds)
+    elif args.cmd == "unet-bar":
+        res = unet_bar(torch, args.seeds)
     elif args.cmd == "detector-fits":
         res = detector_fits(torch, args.seed, args.dirs)
     else:

@@ -3,7 +3,8 @@
 NVIDIA card and print its result.
 
     python3 closed_loop_protocol.py [--seed 0] [--f32-embedder] [--reference-draw]
-        [--l1-scale X] [--save-decoder PATH] [--probe] [--head-probe] [--out PATH]
+        [--l1-scale X] [--save-decoder PATH] [--probe] [--head-probe]
+        [--bf16-operand-fit] [--out PATH]
 
 The protocol is the command line behind the JAX package's
 `docs/closed_loop_anyband` result (`cli closed-loop --anyband --scan-layers
@@ -44,12 +45,24 @@ how far epoch 1's `l_out` follows the detector head (`head_probe`): the
 detector corpus and the evaluation clips embedded four ways the protocol's
 embedder could legitimately take (bf16 at batches 16, 8 and 24, and the f32
 embedder at 16), each set fitted by the port's `train_detector`, and epoch 1
-run from the same untrained decoder with each head. Per head it prints the
+run from the same untrained decoder with each head; a fifth way,
+`bf16_operands_batch16`, fits the protocol's own embeddings with
+`train_detector_bf16_operands` and runs epoch 1 with that head as fitted and
+again with its weight rounded to bf16. Per head it prints the
 embeddings' distance from the protocol's own, |w|, the median |logit|, the
 L-BFGS steps and the distance to the float64 optimum, the cosine to the
 protocol's head, the split and held-out accuracy and EER, and epoch 1's
-`l_out` (over the record's at seed 0); last, the largest `l_out` over the
-smallest.
+`loss`, `l_in`, `l_out` (over the record's at seed 0), `l1` and `w`; last,
+the largest `l_out` over the smallest among the four f32 fits.
+
+`--bf16-operand-fit` runs the protocol with the detector fitted as a v5e
+fits it at JAX's default matmul precision: `bf16_operand_objective`, the
+port's objective with both operands of the logit's product, and of its
+gradient's, rounded to bf16 and summed in f32 (`round_bf16`,
+`Bf16OperandProduct`), through the port's `lbfgs_fit` with the same split,
+stopping rule and evaluation (`train_detector_bf16_operands`). The
+package's own fit is not touched. This reproduces a TPU's arithmetic; it
+is a diagnostic, not an option of the system.
 
 It prints the card's name and power limit, each epoch's record as it is
 finalised, and last one JSON line: the detector's accuracy and EER, its
@@ -72,6 +85,10 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
 
 N_TRAIN, N_EVAL, EPOCHS, BATCH_SIZE, NOISE_RMS = 128, 64, 120, 16, 1.0
 ROOT = Path(__file__).resolve().parent
@@ -178,7 +195,6 @@ def bn_gaps(torch, unet, kept: dict) -> dict:
 def probe(torch, pipe, state, clips, batch_size: int) -> dict:
     """p(manipulated) of the complement (mean) and the flip rate on
     `clips`, four ways (see the module's docstring)."""
-    import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.config import manipulated_probability
     from xai_audio_deepfakes_tpu_torch.device import deterministic_cudnn
@@ -233,7 +249,6 @@ def float64_fit(torch, x, y, max_iter: int, device="cuda"):
     L-BFGS (tol 1e-12), to see how far an f32 fit is from the optimum.
     -> (steps, last gradient norm, weights [D], bias, the objective at any
     (w, b) in float64)."""
-    import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.train import train_logreg
 
@@ -259,7 +274,6 @@ def fit_summary(torch, x, y, params: dict) -> dict:
     """A fitted detector head on its corpus (x, y): the rows, features and
     training rows of its split, |w|, the median |logit| on the training
     rows, and its distance to the same objective fitted in float64."""
-    import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.train import train_logreg
 
@@ -281,10 +295,83 @@ def fit_summary(torch, x, y, params: dict) -> dict:
                 "cosine": float(w @ w64 / (np.linalg.norm(w) * np.linalg.norm(w64)))}}
 
 
-# the head probe's ways to embed the detector corpus: (name, embedder dtype,
-# batch); the first is the protocol's own
-PROBE_WAYS = (("bf16_batch16", "bfloat16", BATCH_SIZE), ("bf16_batch8", "bfloat16", 8),
-              ("bf16_batch24", "bfloat16", 24), ("f32_batch16", "float32", BATCH_SIZE))
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor rounded to the nearest bf16 (ties to even), as f32: the
+    operand rounding of a TPU's default matmul precision. A NaN becomes the
+    quiet NaN of its sign, as XLA's f32 -> bf16 conversion makes it."""
+    r = t.to(torch.bfloat16).float()
+    return torch.where(torch.isnan(t), torch.full_like(t, float("nan")).copysign(t), r)
+
+
+class Bf16OperandProduct(torch.autograd.Function):
+    """x [N, D] @ w [D, 1] with both operands rounded to bf16 and the
+    products summed in f32, as a TPU computes an f32 `dot` at default
+    precision; the weight's gradient is that transposed product with bf16
+    operands too, round(x)^T @ round(g). (Autograd through the casts would
+    round the gradient itself to bf16.) x takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xr = round_bf16(x)
+        ctx.save_for_backward(xr)
+        return xr @ round_bf16(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (xr,) = ctx.saved_tensors
+        return None, xr.t() @ round_bf16(g)
+
+
+def bf16_operand_objective(params: dict, x: torch.Tensor, y: torch.Tensor,
+                           c: float) -> torch.Tensor:
+    """`train_logreg.logreg_objective` with the logit's product at a TPU's
+    default precision (`Bf16OperandProduct`): z = round(x) @ round(w) + b;
+    the bias and the L2 term stay f32."""
+    z = Bf16OperandProduct.apply(x, params["weight"]) + params["bias"]
+    nll = (y * F.softplus(-z) + (1.0 - y) * F.softplus(z)).sum()
+    return nll + 0.5 / c * (params["weight"] ** 2).sum()
+
+
+def fit_bf16_operands(x, y, c: float = 1e6, max_iter: int = 1000, tol: float = 1e-7,
+                      device="cuda", log_fn=None) -> dict:
+    """`train_logreg.fit_logreg` on `bf16_operand_objective`: the same
+    start, `lbfgs_fit`, stopping rule and log."""
+    from xai_audio_deepfakes_tpu_torch.train import train_logreg
+
+    xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    yt = torch.as_tensor(np.asarray(y, np.float32), device=device)[:, None]
+    params = {"weight": torch.zeros((x.shape[1], 1), device=device, requires_grad=True),
+              "bias": torch.zeros((1,), device=device, requires_grad=True)}
+    steps, evaluations, value, gnorm = train_logreg.lbfgs_fit(
+        lambda: bf16_operand_objective(params, xt, yt, c), params, max_iter, tol)
+    if log_fn is not None:
+        log_fn({"lbfgs": {"steps": steps, "evaluations": evaluations, "objective": value,
+                          "gnorm": gnorm}})
+    return {k: v.detach() for k, v in params.items()}
+
+
+def train_detector_bf16_operands(x, y, c: float = 1e6, test_size: float = 0.2, seed: int = 42,
+                                 log_fn=None, device="cuda") -> tuple[dict, dict]:
+    """`train_logreg.train_detector` with the fit of `fit_bf16_operands`:
+    the same split and evaluation -> (params, metrics)."""
+    from xai_audio_deepfakes_tpu_torch.train import train_logreg
+
+    x_tr, x_te, y_tr, y_te = train_logreg.stratified_split(x, y, test_size, seed)
+    params = fit_bf16_operands(x_tr, y_tr, c=c, device=device, log_fn=log_fn)
+    metrics = train_logreg.evaluate_logreg(params, x_te, y_te)
+    if log_fn is not None:
+        log_fn({"detector": metrics})
+    return params, metrics
+
+
+# the head probe's ways to embed the detector corpus and fit its head: (name,
+# embedder dtype, batch, fit: "f32", the port's `train_detector`, or
+# "bf16_operands", `train_detector_bf16_operands`); the first is the protocol's own
+PROBE_WAYS = (("bf16_batch16", "bfloat16", BATCH_SIZE, "f32"),
+              ("bf16_batch8", "bfloat16", 8, "f32"),
+              ("bf16_batch24", "bfloat16", 24, "f32"),
+              ("f32_batch16", "float32", BATCH_SIZE, "f32"),
+              ("bf16_operands_batch16", "bfloat16", BATCH_SIZE, "bf16_operands"))
 
 
 def head_probe(torch, pipes: dict, seed: int, record_l_out: float | None) -> dict:
@@ -296,11 +383,14 @@ def head_probe(torch, pipes: dict, seed: int, record_l_out: float | None) -> dic
     pipeline holding the same weights), each set fitted by the port's
     `train_detector`, and epoch 1 (one `train_addvisor` epoch, batches of
     16) run from the same untrained decoder with each head on the bf16
-    pipeline. Ways whose embeddings are bit-equal to an earlier way's are
-    named and not fitted again."""
+    pipeline. Ways whose embeddings are bit-equal to an earlier way's of the
+    same fit are named and not fitted again. The "bf16_operands" way runs
+    epoch 1 a second time with its head's weight rounded to bf16, as the
+    v5e's step takes that product at default precision. The mean-pooled
+    features, its other operand, stay f32: rounding them is one bf16 step
+    on each of 1920 independent terms, whose errors add in quadrature,
+    against a median |logit| of about 36."""
     import copy
-
-    import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.data.synthetic import (
         detector_corpus_anyband,
@@ -336,23 +426,35 @@ def head_probe(torch, pipes: dict, seed: int, record_l_out: float | None) -> dic
         train_addvisor(pipe, batches, num_epochs=1, log_fn=recs.append)
         return recs[0]
 
+    def epoch_1_summary(head: dict) -> dict:
+        t0 = time.perf_counter()
+        rec = epoch_1(head)
+        out = {"s": time.perf_counter() - t0,
+               **{k: rec[k] for k in ("loss", "l_in", "l_out", "l1", "w")}}
+        if record_l_out is not None:
+            out["l_out_over_record"] = rec["l_out"] / record_l_out
+        return out
+
+    fits = {"f32": train_logreg.train_detector, "bf16_operands": train_detector_bf16_operands}
     ways: dict = {}
     embeds: dict = {}
-    for name, dtype, batch in PROBE_WAYS:
+    for name, dtype, batch, fit in PROBE_WAYS:
         t0 = time.perf_counter()
-        x = closed_loop.embed_mean(pipes[dtype], det_wavs, batch)
-        x_ev = np.concatenate([closed_loop.embed_mean(pipes[dtype], w, batch)
-                               for w in (real_ev, manip_ev)])
-        embed_s = time.perf_counter() - t0
-        way: dict = {"dtype": dtype, "batch": batch, "embed_s": embed_s}
-        same = next((k for k, (a, b) in embeds.items()
-                     if np.array_equal(a, x) and np.array_equal(b, x_ev)), None)
-        embeds[name] = (x, x_ev)
+        if (dtype, batch) not in embeds:
+            embeds[dtype, batch] = (closed_loop.embed_mean(pipes[dtype], det_wavs, batch),
+                                    np.concatenate([closed_loop.embed_mean(pipes[dtype], w, batch)
+                                                    for w in (real_ev, manip_ev)]))
+        x, x_ev = embeds[dtype, batch]
+        way: dict = {"dtype": dtype, "batch": batch, "fit": fit,
+                     "embed_s": time.perf_counter() - t0}
+        same = next((k for k, v in ways.items() if v["fit"] == fit
+                     and np.array_equal(embeds[v["dtype"], v["batch"]][0], x)
+                     and np.array_equal(embeds[v["dtype"], v["batch"]][1], x_ev)), None)
         if same is not None:
             ways[name] = {**way, "bit_equal_to": same}
             print(json.dumps({"head_probe": name, **ways[name]}), flush=True)
             continue
-        x0, x0_ev = embeds[PROBE_WAYS[0][0]]
+        x0, x0_ev = embeds[PROBE_WAYS[0][1:3]]
         both, both0 = np.concatenate([x, x_ev]), np.concatenate([x0, x0_ev])
         diff = np.abs(both.astype(np.float64) - both0)
         way["embedding_vs_protocol"] = {
@@ -360,7 +462,7 @@ def head_probe(torch, pipes: dict, seed: int, record_l_out: float | None) -> dic
             "mean_rel": float(diff.mean() / np.abs(both0).mean())}
         lbfgs: list = []
         t0 = time.perf_counter()
-        head, split = train_logreg.train_detector(x, y, log_fn=lbfgs.append, device=dev)
+        head, split = fits[fit](x, y, log_fn=lbfgs.append, device=dev)
         way["fit_s"] = time.perf_counter() - t0
         way["lbfgs"] = next(r["lbfgs"] for r in lbfgs if "lbfgs" in r)
         way.update(fit_summary(torch, x, y, head))
@@ -369,15 +471,14 @@ def head_probe(torch, pipes: dict, seed: int, record_l_out: float | None) -> dic
         way["cosine_to_protocol_head"] = float(w @ w0 / (np.linalg.norm(w) * np.linalg.norm(w0)))
         way["split"] = split
         way["held_out"] = train_logreg.evaluate_logreg(head, x_ev, y_ev)
-        t0 = time.perf_counter()
-        rec = epoch_1(head)
-        way["epoch_1_s"] = time.perf_counter() - t0
-        way["epoch_1"] = {k: rec[k] for k in ("loss", "l_in", "l_out", "l1", "w")}
-        if record_l_out is not None:
-            way["l_out_over_record"] = rec["l_out"] / record_l_out
+        way["epoch_1"] = epoch_1_summary(head)
+        if fit == "bf16_operands":
+            way["epoch_1_weight_rounded"] = epoch_1_summary(
+                {"weight": round_bf16(head["weight"]), "bias": head["bias"]})
         print(json.dumps({"head_probe": name, **way}), flush=True)
         ways[name] = {**way, "w": w}
-    l_outs = [v["epoch_1"]["l_out"] for v in ways.values() if "epoch_1" in v]
+    # the spread over the heads the port's own f32 fit gives
+    l_outs = [v["epoch_1"]["l_out"] for v in ways.values() if "epoch_1" in v and v["fit"] == "f32"]
     for v in ways.values():
         v.pop("w", None)
     return {"rows": int(len(y)), "ways": ways, "record_l_out": record_l_out,
@@ -401,17 +502,20 @@ def main() -> int:
                     help="stop after epoch 1: the detector head fitted on four embeddings "
                          "of the same corpus, epoch 1 run with each (needs --reference-draw)")
     ap.add_argument("--out", default=None, help="write the result JSON here")
+    ap.add_argument("--bf16-operand-fit", action="store_true",
+                    help="fit the detector with its products' operands rounded to bf16, as a "
+                         "TPU's default matmul precision takes them")
     args = ap.parse_args()
     if args.head_probe and not args.reference_draw:
         ap.error("--head-probe needs --reference-draw")
-
-    import torch
+    if args.head_probe and args.bf16_operand_fit:
+        ap.error("--head-probe fits the rounded head as one of its ways; "
+                 "--bf16-operand-fit runs the whole protocol with it")
 
     if not torch.cuda.is_available():
         print("closed_loop_protocol: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import numpy as np
 
     from xai_audio_deepfakes_tpu_torch.convert import load_jax_params
     from xai_audio_deepfakes_tpu_torch.data.synthetic import make_anyband_corpus
@@ -488,6 +592,8 @@ def main() -> int:
                  "evaluate_explanations", "train_addvisor"):
         setattr(closed_loop, name, timed(name, getattr(closed_loop, name)))
     fit: dict = {}
+    if args.bf16_operand_fit:
+        closed_loop.train_detector = timed("train_detector", train_detector_bf16_operands)
     train_detector = closed_loop.train_detector
 
     def recorded_train_detector(x, y, **kw):
