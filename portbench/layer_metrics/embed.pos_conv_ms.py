@@ -1,0 +1,9 @@
+"""Device ms of the embedder's grouped positional conv and its residual add
+(`embed.pos_conv`) in an explain, by CUDA events at the program's span
+edges, over the traced explains."""
+
+from portbench.spans import device_ms_per_unit
+
+
+def read(r):
+    return device_ms_per_unit(r, "embed.pos_conv")

@@ -6,22 +6,21 @@ goes, on the card. A development profiler, run from the root of a checkout:
     python3 profile_explain.py --train [--batch 2] [--unet-dtype bfloat16] [--out FILE]
 
 Builds the full-width pipeline of `chip_smoke.py` (bf16 XLS-R-2B truncation,
-default UNet, random weights from a seed), then
-
-  * times each public stage on its own with CUDA events (mean of 5 calls
-    after a warm-up): spectrogram, predict_mask, the two iSTFTs with
-    their masking, and the 3B-batch embedder split into frontend,
-    projection + positional conv, transformer layers;
-  * traces 5 explains with torch.profiler and sums device time by
-    kernel name, and the device's busy share of the traced wall time (the
-    union of the kernels' intervals over the host's wall clock).
+default UNet, random weights from a seed), then traces 5 explains with
+torch.profiler and reports
+  * the program's spans (`utils/profiling.py`), which record while the
+    profiler runs: calls, host ms and device ms (CUDA events at each span's
+    edges) of each `explain.*`, `embed.*` and `int8.*` stage, per explain;
+  * device time by kernel name, and the device's busy share of the traced
+    wall time (the union of the kernels' intervals over the host's wall
+    clock).
 
 With --train it profiles LMAC training steps of the UNet decoder instead
 (`chip_smoke.py`'s training configuration: bf16 embedder with both fused
 frontend kernels, f32 UNet, or the bf16 UNet with --unet-dtype
-bfloat16): the device time of each phase of a step
-(collate, forward, backward, optimiser; mean of 5 steps) and the same
-kernel table and busy share over 5 traced steps.
+bfloat16): the spans of 5 traced steps (`train.collate`, `train.forward`,
+`train.backward`, `train.optimiser` and what they hold), per step, and the
+same kernel table and busy share.
 
 Prints one JSON object (and writes it to --out when given). Needs a CUDA
 card: without one it exits 1.
@@ -35,19 +34,26 @@ import sys
 import time
 from pathlib import Path
 
-REPS = 5  # calls per timed stage and explains per traced window
+REPS = 5  # explains or steps per traced window
 
 
-def _event_ms(torch, fn, reps: int) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+def _traced(torch, fn, reps: int) -> dict:
+    """`fn()` `reps` times under torch.profiler: the kernel table, the busy
+    share and the program's spans, each per call."""
+    from xai_audio_deepfakes_tpu_torch.utils import profiling
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    profiling.reset()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = {name: {k: None if v is None else v / reps for k, v in s.items()}
+             for name, s in profiling.read().items()}
+    return {"span_ms_per_rep": spans, **_summarise(prof, reps, wall_ms)}
 
 
 def _summarise(prof, reps: int, wall_ms: float) -> dict:
@@ -98,39 +104,15 @@ def profile_training(torch, batch: int | None, unet_dtype: str = "float32") -> d
     b = cfg.train.batch_size
     pipe = ADDvisorPipeline(cfg, device="cuda", seed=0)
     state = init_train_state(pipe)
-    events: list = []
-
-    def mark(name: str) -> None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((name, ev))
-
-    step = make_train_step(pipe, mark=mark)
+    step = make_train_step(pipe)
     rng = np.random.default_rng(1)
     wavs = [torch.from_numpy((rng.standard_normal((b, cfg.audio.num_samples)) * 0.1)
-                             .astype(np.float32)).cuda() for _ in range(2 * REPS + 1)]
+                             .astype(np.float32)).cuda() for _ in range(REPS + 1)]
     step(state, wavs.pop())  # warm-up
-    phases: dict = {}
-    for _ in range(REPS):
-        events.clear()
-        mark("start")
-        step(state, wavs.pop())
-        torch.cuda.synchronize()
-        for (_, prev), (name, ev) in zip(events, events[1:]):
-            phases[name] = phases.get(name, 0.0) + prev.elapsed_time(ev) / REPS
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(REPS):
-            step(state, wavs.pop())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    traced = _traced(torch, lambda: step(state, wavs.pop()), REPS)
     return {"device": torch.cuda.get_device_name(0), "mode": "train", "batch": b,
-            "phase_ms": phases, "step_ms": sum(phases.values()),
-            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-            **_summarise(prof, REPS, wall_ms)}
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, **traced}
 
 
 def _emit(result: dict, out: str | None) -> int:
@@ -169,8 +151,6 @@ def main(argv=None) -> int:
     if args.train:
         return _emit(profile_training(torch, args.batch, args.unet_dtype), args.out)
     from xai_audio_deepfakes_tpu_torch.config import EmbedderConfig, PipelineConfig
-    from xai_audio_deepfakes_tpu_torch.ops.masking import apply_mask, remask_complex
-    from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
     from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 
     cfg = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", fused_ln_gelu=True,
@@ -182,58 +162,13 @@ def main(argv=None) -> int:
         np.random.default_rng(0).standard_normal((b, cfg.audio.num_samples)).astype(np.float32)
         * 0.1).cuda()
 
-    with torch.inference_mode():
-        out = pipe.explain(wav)
-        _, _, mag, phase = pipe.spectrogram(wav)
-        wav3 = torch.cat([wav, out.relevant_wav, out.irrelevant_wav])
-        norm = zero_mean_unit_var_norm(wav3)
-        enc = pipe.encoder
-        fe = enc.feature_encoder(norm)
-        proj = enc.feature_projection(fe)
-        x = proj + enc.pos_conv(proj)
-
-        def layers():
-            y = x
-            for layer in enc.layers:
-                y = layer(y)
-            return y
-
-        def masked_istfts():
-            rel, irr = apply_mask(out.mask, mag, cfg.masking)
-            pipe.istft(*remask_complex(rel, phase))
-            pipe.istft(*remask_complex(irr, phase))
-
-        r = REPS
-        stages = {
-            "explain": _event_ms(torch, lambda: pipe.explain(wav), r),
-            "spectrogram (STFT, kernel B)": _event_ms(torch, lambda: pipe.spectrogram(wav), r),
-            "predict_mask (UNet, f32)": _event_ms(torch, lambda: pipe.predict_mask(mag), r),
-            "masking + 2 iSTFT (kernel C)": _event_ms(torch, masked_istfts, r),
-            "embedder: normalise": _event_ms(torch, lambda: zero_mean_unit_var_norm(wav3), r),
-            "embedder: conv frontend (kernel D, or D and E with fused_conv)": _event_ms(
-                torch, lambda: enc.feature_encoder(norm), r),
-            "embedder: projection + pos conv": _event_ms(
-                torch, lambda: proj + enc.pos_conv(enc.feature_projection(fe)), r),
-            f"embedder: {len(enc.layers)} layers (kernel A)": _event_ms(torch, layers, r),
-        }
-
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(r):
-                pipe.explain(wav)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-
-    trace = _summarise(prof, r, wall_ms)
+    pipe.explain(wav)  # warm-up
     result = {
         "device": torch.cuda.get_device_name(0),
         "batch": b,
         "cudnn_benchmark": args.cudnn_benchmark,
         "fused_conv": args.fused_conv,
-        "stage_ms": stages,
-        **trace,
+        **_traced(torch, lambda: pipe.explain(wav), REPS),
     }
     return _emit(result, args.out)
 

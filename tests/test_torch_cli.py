@@ -288,7 +288,7 @@ def test_wiring_of_the_training_commands(port_only, corpus, tmp_path, capsys):
 
 def test_wiring_of_export_serve_api_and_profile(port_only, corpus, tmp_path, capsys):
     """export, then serve-api --exported answering a request on a thread;
-    profile with a trace that holds the `addv` ops."""
+    profile: the explain's spans and a trace that holds the `addv` ops."""
     res = _run(cli.main, ["export", "--batch-size", "2", "--out", str(tmp_path / "art")],
                capsys)
     assert res["device"] == "cpu" and set(res["files"]) == {"explain.pt2", "params.npz",
@@ -301,7 +301,9 @@ def test_wiring_of_export_serve_api_and_profile(port_only, corpus, tmp_path, cap
     assert 0 < got["pred_original"] < 1 and "relevant_wav_b64" not in got
     res = _run(cli.main, ["profile", "--batch-size", "2", "--iters", "1", "--trace-dir",
                           str(tmp_path / "trace")], capsys)
-    assert res["device"] == "cpu" and res["explain_full"]["calls"] == 1
+    assert res["device"] == "cpu" and all(
+        res[f"explain.{stage}"]["calls"] == 1 and res[f"explain.{stage}"]["device_ms"] is None
+        for stage in ("stft", "decoder", "istft", "embed", "head"))
     trace = (tmp_path / "trace" / "trace.json").read_text()
     assert "addv::attention" in trace and "addv::istft" in trace
 

@@ -843,14 +843,15 @@ def cmd_serve(args):
 
 
 def cmd_profile(args):
-    """Per-stage timing breakdown (+ optional torch.profiler trace) of the
-    explanation pipeline."""
+    """The explanation pipeline's spans (`utils/profiling.py`) over `--iters`
+    explains after an unrecorded warm-up: calls, host ms and device ms of
+    each (+ optional torch.profiler trace)."""
     import contextlib
 
     import torch
 
     from xai_audio_deepfakes_tpu_torch.data.io import load_audio
-    from xai_audio_deepfakes_tpu_torch.utils.profiling import StageTimer, trace
+    from xai_audio_deepfakes_tpu_torch.utils import profiling
 
     pipe = _build_pipeline(args)
     if args.wav:
@@ -866,21 +867,17 @@ def cmd_profile(args):
         )
     wav = torch.from_numpy(wavs).to(pipe.device)
 
-    stages = {
-        "stft": lambda: pipe.spectrogram(wav),
-        "embed": lambda: pipe.features(wav),
-        "mask_unet": lambda: pipe.predict_mask(pipe.spectrogram(wav)[2]),
-        "explain_full": lambda: pipe.explain(wav, decoder=args.decoder),
-    }
-    timer = StageTimer()
-    for fn in stages.values():  # first launches (and the kernel build) untimed
-        StageTimer().timed("warmup", fn)()
-    ctx = trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext()
-    with ctx:
-        for _ in range(args.iters):
-            for name, fn in stages.items():
-                timer.timed(name, fn)()
-    summary = timer.summary()
+    pipe.explain(wav, decoder=args.decoder)  # first launches (and the kernel build)
+    ctx = profiling.trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext()
+    profiling.reset()
+    profiling.on()
+    try:
+        with ctx:
+            for _ in range(args.iters):
+                pipe.explain(wav, decoder=args.decoder)
+    finally:
+        profiling.off()
+    summary = profiling.read()
     summary["batch"] = args.batch_size
     summary["device"] = (torch.cuda.get_device_name(pipe.device)
                          if pipe.device.type == "cuda" else "cpu")
@@ -1135,7 +1132,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8000)
     p.set_defaults(fn=cmd_serve)
 
-    p = sub.add_parser("profile", help="per-stage timings + torch.profiler trace")
+    p = sub.add_parser("profile", help="the explain's spans + torch.profiler trace")
     _common(p)
     p.add_argument("--wav", nargs="*", default=[])
     p.add_argument("--decoder", default="unet", choices=["unet", "features"])

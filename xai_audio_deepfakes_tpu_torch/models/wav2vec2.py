@@ -109,6 +109,7 @@ from xai_audio_deepfakes_tpu_torch.ops.quant import (
     rescale,
 )
 from xai_audio_deepfakes_tpu_torch.parallel.mesh import copy_to_group, reduce_from_group
+from xai_audio_deepfakes_tpu_torch.utils.profiling import span, unrecorded
 
 
 def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -280,8 +281,10 @@ class FeatureProjection(nn.Module):
 def _quantize_floor_first(x: torch.Tensor, dim) -> tuple[torch.Tensor, torch.Tensor]:
     """`_Int8GroupedConv`'s quantization: s = max(max|x|, 1e-12) / 127 (the
     floor before the division, unlike `quantize_symmetric`)."""
-    x = x.float()
-    return quantize_scaled(x, per_127(torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), 1e-12)))
+    with span("int8.quantize"):
+        x = x.float()
+        scale = per_127(torch.clamp_min(x.abs().amax(dim=dim, keepdim=True), 1e-12))
+    return quantize_scaled(x, scale)
 
 
 def _quantize_weight_floor_first(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -563,22 +566,28 @@ class Wav2Vec2Encoder(nn.Module):
         if self.stage is not None:
             raise ValueError("this encoder holds one pipeline stage's layers: run it with "
                              "parallel.pipeline.pipelined_encoder_apply")
-        x = self.feature_projection(self.feature_encoder(wav))
-        x = x + self.pos_conv(x)
+        with span("embed.frontend"):
+            x = self.feature_encoder(wav)
+        with span("embed.projection"):
+            x = self.feature_projection(x)
+        with span("embed.pos_conv"):
+            x = x + self.pos_conv(x)
         remat = self.cfg.remat and torch.is_grad_enabled() and x.requires_grad
         stats = []
-        for i, layer in enumerate(self.layers):
-            scales = None if act_scales is None else {s: a[i] for s, a in act_scales.items()}
-            if calibrate:
-                x, absmax = layer(x, scales, collect_absmax=True)
-                stats.append(absmax)
-            elif remat:
-                x = checkpoint(layer, x, scales, use_reentrant=False, **self._remat_kwargs())
-            else:
-                x = layer(x, scales)
-        if self.final_ln is not None:
-            x = self.final_ln(x, self.cfg.layer_norm_eps)
-        x = x.float()
+        with span("embed.layers"):
+            for i, layer in enumerate(self.layers):
+                scales = None if act_scales is None else {s: a[i] for s, a in act_scales.items()}
+                if calibrate:
+                    x, absmax = layer(x, scales, collect_absmax=True)
+                    stats.append(absmax)
+                elif remat:
+                    x = checkpoint(unrecorded(layer), x, scales, use_reentrant=False,
+                                   **self._remat_kwargs())
+                else:
+                    x = layer(x, scales)
+            if self.final_ln is not None:
+                x = self.final_ln(x, self.cfg.layer_norm_eps)
+            x = x.float()
         if calibrate:
             return x, {s: torch.stack([m[s] for m in stats]) for s in stats[0]}
         return x

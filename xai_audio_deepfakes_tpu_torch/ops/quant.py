@@ -39,6 +39,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from xai_audio_deepfakes_tpu_torch.utils.profiling import span
+
 _FLOOR = 1e-12
 _HOOK = None
 
@@ -78,16 +80,18 @@ def _symmetric_scale(x: torch.Tensor, dim) -> torch.Tensor:
 
 def quantize_symmetric(x: torch.Tensor, dim) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (int8 values, f32 scale that keeps the reduced dims with size 1)."""
-    x = x.float()
-    scale = _symmetric_scale(x, dim)
-    out = (_quantize(x, scale), scale)
+    with span("int8.quantize"):
+        x = x.float()
+        scale = _symmetric_scale(x, dim)
+        out = (_quantize(x, scale), scale)
     return out if _HOOK is None else _HOOK("quantize_symmetric", (x, dim), out)
 
 
 def quantize_scaled(x: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (round(x / scale) clipped to +-127 as int8, scale)."""
-    x = x.float()
-    out = (_quantize(x, scale), scale)
+    with span("int8.quantize"):
+        x = x.float()
+        out = (_quantize(x, scale), scale)
     return out if _HOOK is None else _HOOK("quantize_with_scale", (x, scale), out)
 
 
@@ -98,7 +102,8 @@ def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def rescale(acc: torch.Tensor, sx, sw: torch.Tensor) -> torch.Tensor:
     """The int32 sums back to f32: acc * (sx * sw)."""
-    y = acc.float() * (sx * sw)
+    with span("int8.rescale"):
+        y = acc.float() * (sx * sw)
     return y if _HOOK is None else _HOOK("rescale", (acc, sx, sw), y)
 
 

@@ -53,6 +53,7 @@ from xai_audio_deepfakes_tpu_torch.ops.masking import (
 from xai_audio_deepfakes_tpu_torch.ops.mel import mel_spectrogram
 from xai_audio_deepfakes_tpu_torch.ops.normalize import zero_mean_unit_var_norm
 from xai_audio_deepfakes_tpu_torch.ops.quant import per_127
+from xai_audio_deepfakes_tpu_torch.utils.profiling import span
 
 
 class ExplainOutput(NamedTuple):
@@ -204,29 +205,36 @@ class ADDvisorPipeline:
         if decoder not in ("unet", "features"):
             raise ValueError(f"unknown decoder {decoder!r}")
         masking = self.cfg.masking if masking is None else masking
-        wav = self._as_input(wav)
-        _, _, mag, phase = self.spectrogram(wav)
+        with span("explain.stft"):
+            wav = self._as_input(wav)
+            _, _, mag, phase = self.spectrogram(wav)
         if decoder == "unet":
             feats = None
-            mask = self.predict_mask(mag)
+            with span("explain.decoder"):
+                mask = self.predict_mask(mag)
         else:
-            feats = self.features(wav)
-            mask = self.predict_mask_from_features(feats, mag)
-        rel_mag, irr_mag = apply_mask(mask, mag, masking)
-        rel_wav = self.istft(*remask_complex(rel_mag, phase))
-        irr_wav = self.istft(*remask_complex(irr_mag, phase))
+            with span("explain.embed"):
+                feats = self.features(wav)
+            with span("explain.decoder"):
+                mask = self.predict_mask_from_features(feats, mag)
+        with span("explain.istft"):
+            rel_mag, irr_mag = apply_mask(mask, mag, masking)
+            rel_wav = self.istft(*remask_complex(rel_mag, phase))
+            irr_wav = self.istft(*remask_complex(irr_mag, phase))
         b = wav.shape[0]
-        if feats is None:
-            _, probs = self.classify(torch.cat([wav, rel_wav, irr_wav], dim=0))
-        else:
-            _, probs_both = self.classify(torch.cat([rel_wav, irr_wav], dim=0))
-            probs = torch.cat([self.classify_features(feats)[1], probs_both])
-        return ExplainOutput(
-            mask=mask, magnitude=mag, phase=phase,
-            relevant_wav=rel_wav, irrelevant_wav=irr_wav,
-            probs_clean=probs[:b], probs_relevant=probs[b : 2 * b],
-            probs_irrelevant=probs[2 * b :],
-        )
+        with span("explain.embed"):
+            clips = [wav, rel_wav, irr_wav] if feats is None else [rel_wav, irr_wav]
+            feats_all = self.features(torch.cat(clips, dim=0))
+        with span("explain.head"):
+            probs = self.classify_features(feats_all)[1]
+            if feats is not None:
+                probs = torch.cat([self.classify_features(feats)[1], probs])
+            return ExplainOutput(
+                mask=mask, magnitude=mag, phase=phase,
+                relevant_wav=rel_wav, irrelevant_wav=irr_wav,
+                probs_clean=probs[:b], probs_relevant=probs[b : 2 * b],
+                probs_irrelevant=probs[2 * b :],
+            )
 
     @torch.inference_mode()
     def vocode(self, wav) -> torch.Tensor:

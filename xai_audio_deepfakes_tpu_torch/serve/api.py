@@ -10,6 +10,13 @@ online-serving counterpart to the static gallery (`serve/viewer.py`).
     runs the batches, so the device is never driven from two threads.
   * Each output of a batch comes to the host once; each row's statistics
     are taken there in numpy, as in the JAX package.
+  * Spans (`utils/profiling.py`): on a handler thread `serve.request` (the
+    handler's start to the reply written) around `serve.decode` and
+    `serve.encode`; `serve.queue` from a request's put to the worker's get,
+    under the submitting thread's id; on the worker `serve.linger` (the
+    first get to the batch's close), `serve.explain`, `serve.host_copy`,
+    `serve.rows`; the counter `serve.queue_depth` (requests waiting when a
+    batch starts).
 
 `pipe` is an `ADDvisorPipeline` or a loaded serving artifact
 (`serve/export.py::ExportedExplain`): the service reads its clip contract
@@ -39,7 +46,9 @@ from typing import Any
 import numpy as np
 import torch
 
-# Upper bound on a single POST body (see do_POST): keeps one malicious or
+from xai_audio_deepfakes_tpu_torch.utils.profiling import count, interval, span
+
+# Upper bound on a single POST body (see `_read_clip`): keeps one malicious or
 # accidental multi-GB upload from being buffered into RAM.
 MAX_REQUEST_BYTES = 32 * 1024 * 1024
 
@@ -47,6 +56,8 @@ MAX_REQUEST_BYTES = 32 * 1024 * 1024
 @dataclass
 class _Request:
     wav: np.ndarray
+    thread: int  # the submitting thread's id and the put's epoch ns (`serve.queue`)
+    put_ns: int
     mailbox: "queue.Queue[dict | Exception]" = field(
         default_factory=lambda: queue.Queue(maxsize=1)
     )
@@ -108,7 +119,7 @@ class ExplainService:
     def submit(self, wav: np.ndarray, timeout: float | None = 60.0) -> dict:
         """wav: [num_samples] float32 (already clip-normalized). Blocks until
         the coalesced batch completes; raises on worker-side failure."""
-        req = _Request(np.asarray(wav, np.float32))
+        req = _Request(np.asarray(wav, np.float32), threading.get_ident(), time.time_ns())
         self._queue.put(req)
         try:
             out = req.mailbox.get(timeout=timeout)
@@ -141,20 +152,23 @@ class ExplainService:
             first = self._queue.get()
             if first is None:
                 return
-            batch = [first]
-            deadline = time.monotonic() + self.linger_s
-            while len(batch) < self.batch_size:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    self._queue.put(None)  # re-post shutdown for after flush
-                    break
-                batch.append(nxt)
+            with span("serve.linger", device=False):
+                interval("serve.queue", first.put_ns, first.thread)
+                batch = [first]
+                deadline = time.monotonic() + self.linger_s
+                while len(batch) < self.batch_size:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        self._queue.put(None)  # re-post shutdown for after flush
+                        break
+                    interval("serve.queue", nxt.put_ns, nxt.thread)
+                    batch.append(nxt)
             try:
                 self._dispatch(batch)
             except Exception as e:  # deliver failure to every waiter
@@ -162,29 +176,34 @@ class ExplainService:
                     req.mailbox.put(e)
 
     def _dispatch(self, batch: list[_Request]) -> None:
-        n = self.pipe.cfg.audio.num_samples
-        rows = np.zeros((self.batch_size, n), np.float32)
-        for i, req in enumerate(batch):
-            rows[i] = req.wav
-        mask, mag, rel, irr, p_clean, p_rel, p_irr = self._host(self._run_batch(rows))
-        self.stats["requests"] += len(batch)
-        self.stats["batches"] += 1
-        self.stats["batched_rows"] += len(batch)
-        for i, req in enumerate(batch):
-            req.mailbox.put(
-                {
-                    "pred_original": float(p_clean[i, 0]),
-                    "pred_relevant": float(p_rel[i, 0]),
-                    "pred_irrelevant": float(p_irr[i, 0]),
-                    "mask_mean": float(mask[i].mean()),
-                    "mask_energy_kept": float(
-                        ((mask[i] * mag[i]) ** 2).sum()
-                        / max(float((mag[i] ** 2).sum()), 1e-12)
-                    ),
-                    "relevant_wav": rel[i],
-                    "irrelevant_wav": irr[i],
-                }
-            )
+        count("serve.queue_depth", self._queue.qsize())
+        with span("serve.explain"):
+            n = self.pipe.cfg.audio.num_samples
+            rows = np.zeros((self.batch_size, n), np.float32)
+            for i, req in enumerate(batch):
+                rows[i] = req.wav
+            out = self._run_batch(rows)
+        with span("serve.host_copy"):
+            mask, mag, rel, irr, p_clean, p_rel, p_irr = self._host(out)
+        with span("serve.rows", device=False):
+            self.stats["requests"] += len(batch)
+            self.stats["batches"] += 1
+            self.stats["batched_rows"] += len(batch)
+            for i, req in enumerate(batch):
+                req.mailbox.put(
+                    {
+                        "pred_original": float(p_clean[i, 0]),
+                        "pred_relevant": float(p_rel[i, 0]),
+                        "pred_irrelevant": float(p_irr[i, 0]),
+                        "mask_mean": float(mask[i].mean()),
+                        "mask_energy_kept": float(
+                            ((mask[i] * mag[i]) ** 2).sum()
+                            / max(float((mag[i] ** 2).sum()), 1e-12)
+                        ),
+                        "relevant_wav": rel[i],
+                        "irrelevant_wav": irr[i],
+                    }
+                )
 
 
 def make_handler(service: ExplainService):
@@ -223,11 +242,11 @@ def make_handler(service: ExplainService):
                 self._json(404, {"error": "not found"})
 
         def do_POST(self):
-            path, _, query = self.path.partition("?")
-            if path != "/explain":
-                self._json(404, {"error": "not found"})
-                return
-            want_audio = "audio=0" not in query
+            with span("serve.request", device=False):
+                self._explain()
+
+        def _read_clip(self):
+            """The body's clip, or None after an error reply."""
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 # a clip is <=160 KB of 16-bit PCM at the 5 s contract; 32 MiB
@@ -241,35 +260,47 @@ def make_handler(service: ExplainService):
                             f"{length} > {MAX_REQUEST_BYTES} bytes"
                         },
                     )
-                    return
+                    return None
                 raw = self.rfile.read(length)
-                wav, _ = load_audio_bytes(raw, target_sr=sr, clip_seconds=clip_s)
+                return load_audio_bytes(raw, target_sr=sr, clip_seconds=clip_s)[0]
             except Exception as e:
                 self._json(400, {"error": f"bad wav payload: {e}"})
+                return None
+
+        def _explain(self):
+            path, _, query = self.path.partition("?")
+            if path != "/explain":
+                self._json(404, {"error": "not found"})
+                return
+            want_audio = "audio=0" not in query
+            with span("serve.decode", device=False):
+                wav = self._read_clip()
+            if wav is None:
                 return
             try:
                 res = service.submit(wav)
             except Exception as e:
                 self._json(500, {"error": str(e)})
                 return
-            payload: dict[str, Any] = {
-                k: res[k]
-                for k in (
-                    "pred_original",
-                    "pred_relevant",
-                    "pred_irrelevant",
-                    "mask_mean",
-                    "mask_energy_kept",
-                )
-            }
-            if want_audio:
-                payload["relevant_wav_b64"] = base64.b64encode(
-                    wav_to_bytes(res["relevant_wav"], sr)
-                ).decode()
-                payload["irrelevant_wav_b64"] = base64.b64encode(
-                    wav_to_bytes(res["irrelevant_wav"], sr)
-                ).decode()
-            self._json(200, payload)
+            with span("serve.encode", device=False):
+                payload: dict[str, Any] = {
+                    k: res[k]
+                    for k in (
+                        "pred_original",
+                        "pred_relevant",
+                        "pred_irrelevant",
+                        "mask_mean",
+                        "mask_energy_kept",
+                    )
+                }
+                if want_audio:
+                    payload["relevant_wav_b64"] = base64.b64encode(
+                        wav_to_bytes(res["relevant_wav"], sr)
+                    ).decode()
+                    payload["irrelevant_wav_b64"] = base64.b64encode(
+                        wav_to_bytes(res["irrelevant_wav"], sr)
+                    ).decode()
+                self._json(200, payload)
 
     return Handler
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from xai_audio_deepfakes_tpu_torch.config import AudioConfig, MaskingConvention
+from xai_audio_deepfakes_tpu_torch.utils.profiling import paused
 
 _GRAPH_FILE = "explain.pt2"
 _PARAMS_FILE = "params.npz"
@@ -183,7 +184,7 @@ def export_explain(pipe, batch_size: int, decoder: str = "unet",
     flat = flatten_params(explain_params(pipe, decoder))
     wav = torch.zeros((batch_size, pipe.cfg.audio.num_samples), dtype=torch.float32,
                       device=pipe.device)
-    with torch.no_grad():
+    with torch.no_grad(), paused():  # no span of the explain enters the graph
         program = torch.export.export(_ExplainGraph(pipe, decoder, masking), (flat, wav),
                                       strict=False)
     if program.state_dict:

@@ -50,6 +50,7 @@ from xai_audio_deepfakes_tpu_torch.train.checkpoints import (
     record_event,
     to_host,
 )
+from xai_audio_deepfakes_tpu_torch.utils.profiling import span
 
 
 def decoder_params_key(decoder: str) -> str:
@@ -132,8 +133,10 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
     stay on the decoder's parameters and on `state.w_raw` until the next one.
     `step.forward(state, wav, l1_scale=None, train_bn=True, on_logits=None)`
     is the step's collate and forward alone, with no update.
-    A profiler passes `mark`: it is called with "collate", "forward",
-    "backward" and "optimiser" as each of those phases has been enqueued.
+    The four phases are the spans `train.collate`, `train.forward`,
+    `train.backward` and `train.optimiser` (`utils/profiling.py`); a
+    caller's `mark` is called with "collate", "forward", "backward" and
+    "optimiser" as each of those phases has been enqueued.
 
     The step runs under cuDNN's deterministic algorithms
     (`device.deterministic_cudnn`), so two identical steps on the card give
@@ -182,48 +185,52 @@ def make_train_step(pipe: ADDvisorPipeline, decoder: str = "unet",
                 on_logits(logits)
                 return logits
 
-        wav = to_device(wav, pipe.device)
-        if mesh is not None:
-            wav = batch_sharding(mesh, wav)
-        with torch.no_grad():  # the collate stage: STFT and the clean target
-            _, _, mag, phase = pipe.stft_stage(wav)
-            if features:
-                dec_in = pipe.embed(wav)
-                logits = logreg_apply(pipe.logreg, dec_in.mean(dim=1))[0]
-            else:
-                logits = classify_wav(wav, target_encoder)
-                dec_in = crop_spec(mag, cfg.unet.freq_bins, cfg.unet.frames)
-            class_pred = torch.sigmoid(logits)
+        with span("train.collate"):
+            wav = to_device(wav, pipe.device)
+            if mesh is not None:
+                wav = batch_sharding(mesh, wav)
+            with torch.no_grad():  # the collate stage: STFT and the clean target
+                _, _, mag, phase = pipe.stft_stage(wav)
+                if features:
+                    dec_in = pipe.embed(wav)
+                    logits = logreg_apply(pipe.logreg, dec_in.mean(dim=1))[0]
+                else:
+                    logits = classify_wav(wav, target_encoder)
+                    dec_in = crop_spec(mag, cfg.unet.freq_bins, cfg.unet.frames)
+                class_pred = torch.sigmoid(logits)
         mark("collate")
 
-        state.decoder.train(train_bn)
-        try:
-            mask = state.decoder(dec_in)
-        finally:
-            state.decoder.eval()
-        total, losses, _ = lmac_loss(state.w_raw, mask, mag, phase, class_pred, classify,
-                                     pipe.istft_stage, cfg.loss, l1_scale=l1_scale)
+        with span("train.forward"):
+            state.decoder.train(train_bn)
+            try:
+                mask = state.decoder(dec_in)
+            finally:
+                state.decoder.eval()
+            total, losses, _ = lmac_loss(state.w_raw, mask, mag, phase, class_pred, classify,
+                                         pipe.istft_stage, cfg.loss, l1_scale=l1_scale)
         mark("forward")
         return total, losses, mask
 
     def _step(state: AddvisorTrainState, wav, l1_scale):
         total, losses, mask = forward(state, wav, l1_scale)
-        state.opt_model.zero_grad(set_to_none=True)
-        state.opt_w.zero_grad(set_to_none=True)
-        total.backward()
-        _data_mean_([p.grad for p in state.decoder.parameters() if p.grad is not None]
-                    + [state.w_raw.grad], group)
+        with span("train.backward"):
+            state.opt_model.zero_grad(set_to_none=True)
+            state.opt_w.zero_grad(set_to_none=True)
+            total.backward()
+            _data_mean_([p.grad for p in state.decoder.parameters() if p.grad is not None]
+                        + [state.w_raw.grad], group)
         mark("backward")
-        state.opt_model.step()
-        if cfg.train.freeze_l1_weight:
-            # no gradient step on the L1 weight (TrainConfig.freeze_l1_weight)
-            state.w_raw.grad[-1] = 0.0
-        state.opt_w.step()
-        if cfg.train.renorm_loss_w:
-            with torch.no_grad():
-                state.w_raw.copy_(renormalize_w(state.w_raw,
-                                                freeze_last=cfg.train.freeze_l1_weight))
-        state.step += 1
+        with span("train.optimiser"):
+            state.opt_model.step()
+            if cfg.train.freeze_l1_weight:
+                # no gradient step on the L1 weight (TrainConfig.freeze_l1_weight)
+                state.w_raw.grad[-1] = 0.0
+            state.opt_w.step()
+            if cfg.train.renorm_loss_w:
+                with torch.no_grad():
+                    state.w_raw.copy_(renormalize_w(state.w_raw,
+                                                    freeze_last=cfg.train.freeze_l1_weight))
+            state.step += 1
         mark("optimiser")
 
         total, losses = total.detach(), losses.detach()
