@@ -12,10 +12,11 @@ PyTorch built for CUDA. It
  2. builds the hand-written kernels from `xai_audio_deepfakes_tpu_torch/csrc`
     and prints the build seconds and ptxas' register / shared-memory report,
     and counts the tensor-core instructions (HMMA / HGMMA) of the bf16
-    bodies of attention and conv+LN+GELU in the library's SASS
-    (`cuobjdump -sass`), neither of which may be 0;
+    bodies of attention, conv+LN+GELU and the positional conv in the
+    library's SASS (`cuobjdump -sass`), none of which may be 0;
  3. holds each kernel (A attention, B STFT, C iSTFT, D LayerNorm+GELU,
-    E conv+LayerNorm+GELU) against its plain PyTorch version at every batch
+    E conv+LayerNorm+GELU, F the grouped positional conv and its input
+    gradient at 16 and 192 clips and ragged lengths, `check_pos_conv`) against its plain PyTorch version at every batch
     the driven paths give it (`EMBED_BATCHES`: embedder batches 1, 2, 4, 8,
     16 and 24 for A, D and E, and 48 for A, the closed loop's explain;
     `SPEC_BATCHES`: 1, 2, 8, 16 and 32 clips for B and C, and 1 and 8 in
@@ -45,7 +46,7 @@ PyTorch built for CUDA. It
     (`check_backwards_bf16`);
  5. runs `torch.library.opcheck` on each registered kernel op (`addv::attention`,
     `addv::stft`, `addv::istft`, `addv::ln_gelu`, `addv::ln_gelu_`,
-    `addv::conv_ln_gelu`) with CUDA inputs at one driven shape (batch 2), and
+    `addv::conv_ln_gelu`, `addv::pos_conv`, `addv::pos_conv_dgrad`) with CUDA inputs at one driven shape (batch 2), and
     times each kernel's CUDA implementation called directly (`direct_ms`,
     the ctypes launch without the dispatcher) beside the op's `ms`;
  6. runs `ADDvisorPipeline.explain(decoder="unet")` at the full width of the
@@ -348,8 +349,8 @@ def fft_frame_ops(n_fft: int) -> float:
 
 def check_sass(lib_path: Path) -> None:
     """Count the tensor-core instructions (HMMA, or HGMMA for wgmma) of the
-    bf16 bodies of attention (A) and conv+LN+GELU (E) in the built library's
-    SASS; fails if either has none."""
+    bf16 bodies of attention (A), conv+LN+GELU (E) and the positional conv
+    (F, bf16 only) in the built library's SASS; fails if any has none."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if tool is None:
@@ -360,12 +361,15 @@ def check_sass(lib_path: Path) -> None:
     counts = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split(maxsplit=1)[0]
-        if "attention" in name or "conv_ln_gelu" in name:
+        if "attention" in name or "conv_ln_gelu" in name or "pos_conv" in name:
             counts[name] = section.count("HMMA") + section.count("HGMMA")
     print(f"tensor-core instructions per attention / conv kernel (SASS): {counts}")
     for kernel in ("attention", "conv_ln_gelu"):
         if not any(n > 0 for name, n in counts.items() if kernel in name and "bf16" in name):
             fail(f"the bf16 {kernel} body has no tensor-core instruction")
+    pos = {name: n for name, n in counts.items() if "pos_conv" in name}
+    if not pos or not all(n > 0 for n in pos.values()):
+        fail("a pos_conv body has no tensor-core instruction")
 
 
 def attention_inputs(torch, g, b: int, t: int, nh: int, hd: int, hdp: int, q_scale: float):
@@ -821,6 +825,115 @@ def check_conv_ln_gelu(torch, cfg, rows: list) -> None:
                      "frontend layers 1-6"))
 
 
+POS_CONV_BATCHES = (16, 192)  # a training step's embed, an offline explain's (3 x 64)
+
+
+def check_pos_conv(torch, cfg, rows: list) -> None:
+    """Kernel F (the grouped positional conv) and its input gradient
+    against their plain versions at the main path's shapes ([B, 249, 1920],
+    k 128, 16 groups; `POS_CONV_BATCHES`) and at ragged lengths; two
+    gradient launches bit for bit; then timed at each batch beside the
+    plain version and cuDNN's grouped `F.conv1d` (the library yardstick; its
+    input gradient under deterministic cuDNN, as the training step takes
+    it)."""
+    import torch.nn.functional as F
+
+    from xai_audio_deepfakes_tpu_torch.ops.cuda_pos_conv import (
+        _pos_conv_cuda,
+        grad_weight,
+        pos_conv_dgrad_op,
+        pos_conv_grad_image,
+        pos_conv_image,
+        pos_conv_op,
+        pos_conv_plain,
+    )
+
+    e = cfg.embedder
+    h, k, groups = e.hidden_size, e.num_conv_pos_embeddings, e.num_conv_pos_embedding_groups
+    cg, pad = h // groups, k // 2
+    t = frontend_lengths(cfg)[-1]  # 249 frames of a 5 s clip
+    g = torch.Generator(device="cuda").manual_seed(20)
+    w = (torch.randn(h, cg, k, device="cuda", generator=g) * (cg * k) ** -0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(h, device="cuda", generator=g)).to(torch.bfloat16)
+    img, gimg, gw = pos_conv_image(w), pos_conv_grad_image(w), grad_weight(w)
+    # The tensor cores' f32 sums differ from cuDNN's in the last bits, so a
+    # sum now and then rounds to the neighbouring bf16 value, and the bias
+    # add rounds once more: two bf16 steps (2 x 2^-8 of |y|) at most, plus
+    # 1e-2 for values near 0; at most 0.1% of elements more than one step
+    # off.
+    worst, worst_share = 0.0, 0.0
+    cases = [(bb, t) for bb in POS_CONV_BATCHES] + [(2, 1), (2, 100), (2, 257), (2, 600)]
+    for bb, tt in cases:
+        x = torch.randn(bb, tt, h, device="cuda", generator=g).to(torch.bfloat16)
+        for name, got, want in (
+                ("forward", pos_conv_op(x, img, b, k, pad, tt), pos_conv_plain(x, w, b, pad, tt)),
+                ("input gradient", pos_conv_dgrad_op(x, gimg, k, k - 1 - pad),
+                 pos_conv_plain(x, gw, None, k - 1 - pad, tt))):
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(f"F pos_conv {name} [{bb}, {tt}, {h}]", got, want,
+                                           1e-2, 1.6e-2))
+            off = (got.float() - want.float()).abs() > 1e-2 + 2**-8 * want.float().abs()
+            share = float(off.float().mean())
+            worst_share = max(worst_share, share)
+            if share > 1e-3:
+                fail(f"F pos_conv {name}: {share:.2e} of the elements more than one bf16 step off")
+            del got, want
+        del x
+    x = torch.randn(POS_CONV_BATCHES[0], t, h, device="cuda", generator=g).to(torch.bfloat16)
+    first = pos_conv_dgrad_op(x, gimg, k, k - 1 - pad)
+    if not all(torch.equal(first, pos_conv_dgrad_op(x, gimg, k, k - 1 - pad)) for _ in range(3)):
+        fail("F pos_conv: two input-gradient launches differ")
+    print("  F pos_conv: four input-gradient launches bit for bit equal")
+    del first, x
+    timing: dict = {}
+    for bb in POS_CONV_BATCHES:
+        x = torch.randn(bb, t, h, device="cuda", generator=g).to(torch.bfloat16)
+        xt = x.transpose(1, 2).contiguous()
+        wn = w.contiguous()
+        ops = 2.0 * bb * t * h * cg * k
+        nbytes = 2.0 * (2 * bb * t * h + h * cg * k)
+        bnd, by = bound_ms(nbytes, ops, "bfloat16")
+        fwd = lambda: pos_conv_op(x, img, b, k, pad, t)  # noqa: E731
+        dgrad = lambda: pos_conv_dgrad_op(x, gimg, k, k - 1 - pad)  # noqa: E731
+        lib = lambda: F.conv1d(xt, wn, b, padding=pad, groups=groups)  # noqa: E731
+        lib_dgrad = lambda: torch.nn.grad.conv1d_input(  # noqa: E731
+            (bb, h, t), wn, F.pad(xt, (0, 1)), padding=pad, groups=groups)
+        iters = 10  # a profiler trace of a few calls has been seen to miss one launch
+        rec = dict(ms=time_ms(fwd, iters=iters, warmup=1),
+                   direct_ms=time_ms(lambda: _pos_conv_cuda(x, img, b, k, pad, t), iters=iters,
+                                     warmup=1),
+                   kernel_device_ms=kernel_device_ms(fwd, "pos_conv_fwd", iters=iters),
+                   dgrad_ms=time_ms(dgrad, iters=iters, warmup=1),
+                   dgrad_device_ms=kernel_device_ms(dgrad, "pos_conv_dgrad", iters=iters),
+                   plain_ms=time_ms(lambda: pos_conv_plain(x, w, b, pad, t), iters=2, warmup=1),
+                   library_ms=time_ms(lib, iters=iters, warmup=1),
+                   library_device_ms=kernel_device_ms(lib, iters=iters),
+                   bound_ms=bnd, bound_by=by, gflop=ops / 1e9)
+        with torch.backends.cudnn.flags(deterministic=True, benchmark=False):
+            rec["library_dgrad_ms"] = time_ms(lib_dgrad, iters=iters, warmup=1)
+            rec["library_dgrad_device_ms"] = kernel_device_ms(lib_dgrad, iters=iters)
+        rec["roofline_pct"] = 100.0 * bnd / rec["kernel_device_ms"]
+        rec["dgrad_roofline_pct"] = 100.0 * bnd / rec["dgrad_device_ms"]
+        print(f"  F pos_conv at [{bb}, {t}, {h}]: " + json.dumps(
+            {kk: round(v, 4) if isinstance(v, float) else v for kk, v in rec.items()}))
+        timing[bb] = rec
+        del x, xt
+    main_b = POS_CONV_BATCHES[-1]
+    rows.append(dict(name="pos_conv", route="cuda",
+                     source="xai_audio_deepfakes_tpu_torch/csrc/pos_conv.cu",
+                     replaces="none: XLA's grouped conv in the JAX package; cuDNN's grouped "
+                     "k 128 conv runs on the CUDA cores",
+                     max_abs_err=worst, share_over_one_bf16_step=worst_share,
+                     shape=[main_b, t, h], dtype="bfloat16", k=k, groups=groups,
+                     **timing[main_b], by_batch=timing,
+                     body="bf16: implicit GEMM, wgmma m64n120k16 with both operands in shared "
+                     "memory; one A tile of TM + k rows a block read at a shift of one row a "
+                     "tap, weights by bulk copy through a 5-stage ring; 256 frames x one "
+                     "group a block; the input gradient on the flipped image",
+                     note="the forward's columns at batch 192 (an offline explain's embed); "
+                     "dgrad_* the input gradient at the same shape; by_batch adds 16"))
+
+
 def check_backwards(torch, cfg) -> None:
     """Backward of each differentiated kernel wrapper (forward through the
     kernel, backward by recomputation) against autograd through the plain
@@ -1015,8 +1128,13 @@ def build_pipeline(torch, cfg, seed: int = 0):
     return pipe
 
 
-def launches_of(a: int = 0, b: int = 0, c: int = 0, d: int = 0, e: int = 0) -> dict:
-    return {"attention": a, "stft": b, "istft": c, "ln_gelu": d, "conv_ln_gelu": e}
+def launches_of(a: int = 0, b: int = 0, c: int = 0, d: int = 0, e: int = 0, f: int = 0,
+                fd: int = 0) -> dict:
+    """Launches by kernel: f is kernel F's forward (one a bf16 float embed on
+    the card), fd its input gradient (one an embed the backward passes
+    through)."""
+    return {"attention": a, "stft": b, "istft": c, "ln_gelu": d, "conv_ln_gelu": e,
+            "pos_conv": f, "pos_conv_dgrad": fd}
 
 
 def run_explain(torch, cfg, want: dict, reps: int, name: str = "", split: bool = False,
@@ -1169,8 +1287,8 @@ def run_training(torch, cfg) -> tuple[dict, float]:
     enc_before = [p.detach().clone() for p in pipe.encoder.parameters()]
     dec_before = [p.detach().clone() for p in pipe.unet.parameters()]
     fusable = sum(blk.fusable for blk in pipe.encoder.feature_encoder.conv_layers)
-    want = {"attention": 3 * e.num_layers, "stft": 1, "istft": 2,
-            "ln_gelu": 3 * (len(e.conv_dim) - fusable), "conv_ln_gelu": 3 * fusable}
+    want = launches_of(a=3 * e.num_layers, b=1, c=2, d=3 * (len(e.conv_dim) - fusable),
+                       e=3 * fusable, f=3, fd=2)
     total = dict.fromkeys(want, 0)
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1668,8 +1786,7 @@ def run_tiny_training(torch) -> None:
         _, aux = make_train_step(pipe)(state, wav)
         results.append((aux, [p.grad.cpu() for p in pipe.unet.parameters()], state.w_raw.detach().cpu()))
     launches = dict(_cuda.LAUNCHES)  # the CPU step launches nothing
-    want = {"attention": 3 * len(gpu.encoder.layers), "stft": 1, "istft": 2, "ln_gelu": 3,
-            "conv_ln_gelu": 6}
+    want = launches_of(a=3 * len(gpu.encoder.layers), b=1, c=2, d=3, e=6)
     if launches != want:
         fail(f"tiny training step: launch counts {launches} != {want}")
     (aux_g, grads_g, w_g), (aux_c, grads_c, w_c) = results
@@ -1773,7 +1890,8 @@ def run_attribution(torch, pipe) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         launches = dict(_cuda.LAUNCHES)
         forwards = evals + 3
-        want = launches_of(a=e.num_layers * forwards, d=len(e.conv_dim) * forwards)
+        want = launches_of(a=e.num_layers * forwards, d=len(e.conv_dim) * forwards, f=forwards,
+                           fd=evals)
         mask = torch.from_numpy(seen[0][1])
         print(f"attribution {method} {kw} at batch 2: {ms:.1f} ms, launches {launches}, "
               f"mask max {float(mask.max()):.3f}, result {json.dumps(result)}")
@@ -2053,7 +2171,7 @@ def _remat_steps(torch, cfg, wavs, policy: str):
             fail(f"training remat {policy}: non-finite losses")
     launches = dict(_cuda.LAUNCHES)
     recompute = 2 * e.num_layers if policy != "off" else 0
-    want = launches_of(a=n * (3 * e.num_layers + recompute), b=n, c=2 * n,
+    want = launches_of(a=n * (3 * e.num_layers + recompute), b=n, c=2 * n, f=3 * n, fd=2 * n,
                        d=3 * n * (len(e.conv_dim) - fusable), e=3 * n * fusable)
     steady = f" (steady {sum(times[1:]) / (n - 1):.1f})" if n > 1 else ""
     print(f"training remat {policy}, {n} steps at {b} clips: step ms "
@@ -2097,7 +2215,7 @@ def run_features_training(torch, cfg) -> dict:
     launches = dict(_cuda.LAUNCHES)
     fusable = sum(blk.fusable for blk in pipe.encoder.feature_encoder.conv_layers)
     want = launches_of(a=3 * e.num_layers, b=1, c=2, d=3 * (len(e.conv_dim) - fusable),
-                       e=3 * fusable)
+                       e=3 * fusable, f=3, fd=2)
     vec = aux["loss_vec"].cpu()
     print(f"training step, decoder=features, {b} clips: {ms:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, "
@@ -2256,7 +2374,7 @@ def run_datagen_and_embed(torch, root: Path) -> dict:
     x, y = generate_band_swap_features(pairs(), embed_fn, log_fn=logs.append)
     wall = time.perf_counter() - t0  # the features come to the host: the device is done
     launches = dict(_cuda.LAUNCHES)
-    per_pair = launches_of(a=2 * e.num_layers, b=2, c=1)
+    per_pair = launches_of(a=2 * e.num_layers, b=2, c=1, f=2)
     print(f"datagen launches for {PAIRS} pairs: {launches}; leakage warnings {logs}")
     if launches != {k: PAIRS * v for k, v in per_pair.items()}:
         fail(f"datagen: launch counts {launches} != {PAIRS} x {per_pair}")
@@ -2291,7 +2409,7 @@ def run_datagen_and_embed(torch, root: Path) -> dict:
     print(f"embed, AudioBatcher at batch 4 over {PAIRS} files: {embed_s * 1e3:.1f} ms, "
           f"launches {embed_launches}, pooled {list(pooled.shape)}, probs "
           f"{[round(v, 4) for v in probs.flatten().tolist()]}")
-    if embed_launches != launches_of(a=e.num_layers * len(batcher)):
+    if embed_launches != launches_of(a=e.num_layers * len(batcher), f=len(batcher)):
         fail(f"embed: launch counts {embed_launches}")
     if tuple(pooled.shape) != (PAIRS, h) or not bool(torch.isfinite(pooled).all()):
         fail("embed: pooled features of the wrong shape or not finite")
@@ -2378,7 +2496,8 @@ def run_detector_corpus(torch, root: Path) -> dict:
     print(f"anyband corpus embed at batch {BATCH} (kernel D config): {len(wavs)} clips in "
           f"{batches} batches, {embed_s:.3f} s, {len(wavs) / embed_s:.1f} clips/s, launches "
           f"{dict(_cuda.LAUNCHES)}")
-    if dict(_cuda.LAUNCHES) != launches_of(a=e.num_layers * batches, d=len(e.conv_dim) * batches):
+    if dict(_cuda.LAUNCHES) != launches_of(a=e.num_layers * batches, d=len(e.conv_dim) * batches,
+                                           f=batches):
         fail(f"corpus embed: launch counts {dict(_cuda.LAUNCHES)}")
     if not np.isfinite(x).all():
         fail("corpus embed: non-finite features")
@@ -2672,13 +2791,15 @@ def run_closed_loop_reduced(torch, root: Path) -> dict:
         "make_anyband_corpus": launches_of(b=4, c=2),
         "detector_corpus_anyband": launches_of(b=28, c=20),
         "train_detector": launches_of(),
-        "evaluate_explanations": launches_of(a=3 * a, b=3, c=6),
-        "train_addvisor": launches_of(a=steps * (3 * a + 2 * a), b=steps, c=2 * steps),
+        "evaluate_explanations": launches_of(a=3 * a, b=3, c=6, f=3),
+        "train_addvisor": launches_of(a=steps * (3 * a + 2 * a), b=steps, c=2 * steps,
+                                      f=3 * steps, fd=2 * steps),
     }
     for name, w in want.items():
         if stages[name]["launches"] != w:
             fail(f"closed loop stage {name}: launches {stages[name]['launches']} != {w}")
-    if embeds["attention"] % a or any(v for k, v in embeds.items() if k != "attention"):
+    if (embeds["attention"] % a or embeds["pos_conv"] != embeds["attention"] // a
+            or any(v for k, v in embeds.items() if k not in ("attention", "pos_conv"))):
         fail(f"closed loop embeds: launches {embeds}")
     det_batches = embeds["attention"] // a - n // LOOP_BATCH
 
@@ -2788,7 +2909,7 @@ def run_trainer_switches(torch, fused, f32_step_ms: float) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         launches = dict(_cuda.LAUNCHES)
         want = launches_of(a=3 * e.num_layers, b=1, c=2, d=3 * (len(e.conv_dim) - fusable),
-                           e=3 * fusable)
+                           e=3 * fusable, f=2 if name == "target_quant_int8" else 3, fd=2)
         vec = aux["loss_vec"].cpu()
         print(f"training step, {name}, 2 clips (bf16 embedder, fused_ln_gelu, fused_conv): "
               f"{[round(t, 1) for t in times]} ms (the f32 UNet's steady "
@@ -2940,7 +3061,7 @@ def run_vocoder(torch, root: Path) -> dict:
         torch.cuda.synchronize()
         paths["explain_vocoded"] = dict(_cuda.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        want = launches_of(a=e.num_layers, b=2, c=2)
+        want = launches_of(a=e.num_layers, b=2, c=2, f=1)
         rel = out.relevant_wav
         split = {"explain": time_ms(lambda: pipe.explain(wav), 3),
                  "vocode of the relevant clips": time_ms(lambda: pipe.vocode(rel), 3),
@@ -3026,7 +3147,13 @@ def run_opcheck(torch, cfg) -> None:
     one driven shape (batch 2, the training step's)."""
     from torch.library import opcheck
 
-    from xai_audio_deepfakes_tpu_torch.ops import attention, cuda_conv, cuda_ln_gelu, cuda_stft
+    from xai_audio_deepfakes_tpu_torch.ops import (
+        attention,
+        cuda_conv,
+        cuda_ln_gelu,
+        cuda_pos_conv,
+        cuda_stft,
+    )
 
     e, sc = cfg.embedder, cfg.stft
     n, t, eps = cfg.audio.num_samples, cfg.audio.num_frames(sc), e.layer_norm_eps
@@ -3039,6 +3166,12 @@ def run_opcheck(torch, cfg) -> None:
     lengths = frontend_lengths(cfg)
     x, w, cb, scale, bias = conv_inputs(torch, g, torch.bfloat16, e.conv_kernel[1], lengths[0],
                                         2, e.conv_dim[0])
+    h, kp, t_emb = e.hidden_size, e.num_conv_pos_embeddings, lengths[-1]
+    cg = h // e.num_conv_pos_embedding_groups
+    xp = torch.randn(2, t_emb, h, device="cuda", generator=g).to(torch.bfloat16)
+    wp = (torch.randn(h, cg, kp, device="cuda", generator=g) * (cg * kp) ** -0.5).to(torch.bfloat16)
+    pb = (0.1 * torch.randn(h, device="cuda", generator=g)).to(torch.bfloat16)
+    pimg, gimg = cuda_pos_conv.pos_conv_image(wp), cuda_pos_conv.pos_conv_grad_image(wp)
     cases = {
         "addv::attention": (attention.attention_op, (q, k, v, e.num_heads)),
         "addv::stft": (cuda_stft.stft_op, (wav, *cuda_stft._cfg_args(sc))),
@@ -3046,6 +3179,8 @@ def run_opcheck(torch, cfg) -> None:
         "addv::ln_gelu": (cuda_ln_gelu.ln_gelu_op, (x, scale, bias, eps, e.gelu)),
         "addv::ln_gelu_": (cuda_ln_gelu.ln_gelu_inplace_op, (x.clone(), scale, bias, eps, e.gelu)),
         "addv::conv_ln_gelu": (cuda_conv.conv_ln_gelu_op, (x, w, cb, scale, bias, eps, e.gelu)),
+        "addv::pos_conv": (cuda_pos_conv.pos_conv_op, (xp, pimg, pb, kp, kp // 2, t_emb)),
+        "addv::pos_conv_dgrad": (cuda_pos_conv.pos_conv_dgrad_op, (xp, gimg, kp, kp - 1 - kp // 2)),
     }
     for name, (op, args) in cases.items():
         t0 = time.perf_counter()
@@ -3166,7 +3301,7 @@ def run_serve(torch, pipe) -> dict:
         if stats["requests"] != SERVE_REQUESTS or not stats["batches"] < stats["requests"]:
             fail(f"serve: no coalescing, stats {stats}")
         nb = stats["batches"]
-        if launches != launches_of(a=9 * nb, b=nb, c=2 * nb):
+        if launches != launches_of(a=9 * nb, b=nb, c=2 * nb, f=nb):
             fail(f"serve: launches {launches} over {nb} batches")
 
         # the first 8 responses against the direct explain of the decoded clips
@@ -3334,7 +3469,7 @@ def run_export(torch, pipe, root: Path) -> dict:
         fail(f"export: the artifact's process exited {res.returncode}")
     got = json.loads(res.stdout.strip().splitlines()[-1])
     print(f"export: artifact process ({child_s:.1f} s): " + json.dumps(got))
-    want = launches_of(a=pipe.cfg.embedder.num_layers, b=1, c=2)
+    want = launches_of(a=pipe.cfg.embedder.num_layers, b=1, c=2, f=1)
     if got["launches"] != want:
         fail(f"export: the artifact launched {got['launches']} (want {want})")
     if got["imported_model_modules"] or got["state_dict_len"]:
@@ -3434,7 +3569,7 @@ def run_export_platforms(torch, pipe, root: Path) -> dict:
         fail(f"export platforms: the artifact's process exited {res.returncode}")
     got = json.loads(res.stdout.strip().splitlines()[-1])
     print(f"export platforms: artifact process ({child_s:.1f} s): " + json.dumps(got))
-    want = launches_of(a=pipe.cfg.embedder.num_layers, b=1, c=2)
+    want = launches_of(a=pipe.cfg.embedder.num_layers, b=1, c=2, f=1)
     if got["cuda"]["launches"] != want:
         fail(f"export platforms: the cuda graph launched {got['cuda']['launches']} (want {want})")
     if any(got["cpu"]["launches"].values()):
@@ -3810,7 +3945,8 @@ def run_parallel(torch, per_explain: dict) -> dict:
                        meshed[1][i], plain[1][i])
         _bit_equal(torch, f"(c) decoder after the mesh steps ({unet_dtype} UNet)", meshed[2],
                    plain[2])
-        want_steps = {k: len(wavs) * v for k, v in launches_of(a=27, b=1, c=2, d=3, e=18).items()}
+        want_steps = {k: len(wavs) * v for k, v in launches_of(a=27, b=1, c=2, d=3, e=18, f=3,
+                                                                 fd=2).items()}
         if meshed[3] != want_steps or plain[3] != want_steps:
             fail(f"(c) mesh training ({unet_dtype} UNet): launch counts {meshed[3]} (plain "
                  f"{plain[3]}) != {want_steps}")
@@ -3863,7 +3999,7 @@ def run_parallel(torch, per_explain: dict) -> dict:
         paths["parallel_explain_48_layers"] = dict(_cuda.LAUNCHES)
         ms += _timed(torch, lambda: explain(wav), reps=2)
         out = explain(wav)
-    want48 = launches_of(a=48, b=1, c=2)
+    want48 = launches_of(a=48, b=1, c=2, f=1)
     if paths["parallel_explain_48_layers"] != want48:
         fail(f"(g) 48-layer explain: launch counts {paths['parallel_explain_48_layers']} != "
              f"{want48}")
@@ -3882,7 +4018,7 @@ def run_parallel(torch, per_explain: dict) -> dict:
     _cuda.reset_launches()
     t = _timed(torch, lambda: step(state, wavs[0]), reps=1)
     paths["parallel_train_48_layers"] = dict(_cuda.LAUNCHES)
-    want48 = launches_of(a=3 * 48 + 2 * 48, b=1, c=2)
+    want48 = launches_of(a=3 * 48 + 2 * 48, b=1, c=2, f=3, fd=2)
     if paths["parallel_train_48_layers"] != want48:
         fail(f"(g) 48-layer training step: launch counts {paths['parallel_train_48_layers']} != "
              f"{want48}")
@@ -3934,18 +4070,19 @@ def main() -> int:
         check_stft(torch, cfg, rows)
         check_ln_gelu(torch, cfg, rows)
         check_conv_ln_gelu(torch, cfg, rows)
+        check_pos_conv(torch, cfg, rows)
     check_backwards(torch, cfg)
     check_backwards_bf16(torch, cfg)
     run_opcheck(torch, cfg)
     torch.cuda.empty_cache()
 
     n_layers, n_conv = cfg.embedder.num_layers, len(cfg.embedder.conv_dim)
-    per_explain = launches_of(a=n_layers, b=1, c=2, d=n_conv)
-    per_explain_fused = launches_of(a=n_layers, b=1, c=2, d=1, e=n_conv - 1)
+    per_explain = launches_of(a=n_layers, b=1, c=2, d=n_conv, f=1)
+    per_explain_fused = launches_of(a=n_layers, b=1, c=2, d=1, e=n_conv - 1, f=1)
     # the feature decoder embeds the clean clips (B) and the masked ones (2B)
     # in two passes: twice the embedder's launches, one STFT, two iSTFTs
-    per_features = launches_of(a=2 * n_layers, b=1, c=2, d=2 * n_conv)
-    per_features_fused = launches_of(a=2 * n_layers, b=1, c=2, d=2, e=2 * (n_conv - 1))
+    per_features = launches_of(a=2 * n_layers, b=1, c=2, d=2 * n_conv, f=2)
+    per_features_fused = launches_of(a=2 * n_layers, b=1, c=2, d=2, e=2 * (n_conv - 1), f=2)
     paths: dict = {}
     pipe = build_pipeline(torch, cfg)
     counts = [run_explain(torch, cfg, per_explain, reps=2, pipe=pipe)]
@@ -3986,13 +4123,15 @@ def main() -> int:
     bench = PipelineConfig(embedder=EmbedderConfig(dtype="bfloat16", quant="int8", gelu="tanh"),
                            unet=UNetConfig(dtype="bfloat16"))
     static = bench.replace(embedder=dataclasses.replace(bench.embedder, quant="int8-static"))
-    serving = launches_of(a=n_layers, b=1, c=2)
+    serving = launches_of(a=n_layers, b=1, c=2, f=1)  # the entry point's: kernel F
+    serving_int8 = launches_of(a=n_layers, b=1, c=2)  # the int8 positional conv
     paths = {"explain": counts[0][0], "explain_fused_conv": counts[1][0],
              "train_3_steps": train_launches, **paths}
     for path, pcfg in (("explain_entry_config", entry), ("explain_bench_default", bench),
                        ("explain_int8_static", static)):
         torch.cuda.empty_cache()
-        paths[path] = run_explain(torch, pcfg, serving, reps=2, name=path, split=True)[0]
+        want = serving if pcfg.embedder.quant == "none" else serving_int8
+        paths[path] = run_explain(torch, pcfg, want, reps=2, name=path, split=True)[0]
     paths.update(run_int8_attribution(torch, bench))
     torch.cuda.empty_cache()
     # the CLI's default configuration (the entry point's) behind the HTTP
@@ -4034,7 +4173,8 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] < 1:
             fail(f"kernel {row['name']} was launched by no driven path")
-    order = {"attention": 0, "stft": 1, "istft": 2, "ln_gelu": 3, "conv_ln_gelu": 4}
+    order = {"attention": 0, "stft": 1, "istft": 2, "ln_gelu": 3, "conv_ln_gelu": 4,
+             "pos_conv": 5}
     rows.sort(key=lambda r: order[r["name"]])
     for row in rows:
         # a bound is the least time the card could take. `ms`, `plain_ms`,

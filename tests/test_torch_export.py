@@ -30,7 +30,13 @@ from tests.test_torch_pipeline import _tiny, jax_params  # noqa: F401 (a fixture
 from xai_audio_deepfakes_tpu_torch import config as tc
 from xai_audio_deepfakes_tpu_torch.config import STFTConfig
 from xai_audio_deepfakes_tpu_torch.convert import load_jax_params
-from xai_audio_deepfakes_tpu_torch.ops import attention, cuda_conv, cuda_ln_gelu, cuda_stft
+from xai_audio_deepfakes_tpu_torch.ops import (
+    attention,
+    cuda_conv,
+    cuda_ln_gelu,
+    cuda_pos_conv,
+    cuda_stft,
+)
 from xai_audio_deepfakes_tpu_torch.ops.stft import istft_plain, stft_plain
 from xai_audio_deepfakes_tpu_torch.pipeline.core import ADDvisorPipeline
 from xai_audio_deepfakes_tpu_torch.serve import export
@@ -73,6 +79,10 @@ def _op_cases():
     scale, bias = 1 + 0.1 * torch.randn(128, generator=g), 0.1 * torch.randn(128, generator=g)
     w = (torch.randn(128, 128, 3, generator=g) * 0.05).bfloat16()
     cb = 0.1 * torch.randn(128, generator=g)
+    xp = torch.randn(2, 19, 48, generator=g).bfloat16()
+    wp = (torch.randn(48, 24, 5, generator=g) * 0.1).bfloat16()
+    bp = (0.1 * torch.randn(48, generator=g)).bfloat16()
+    pimg, gimg = cuda_pos_conv.pos_conv_image(wp), cuda_pos_conv.pos_conv_grad_image(wp)
     return {
         "attention": (attention.attention_op, (q, k, v, 2),
                       lambda: attention.attention_plain(q, k, v, 2)),
@@ -88,6 +98,11 @@ def _op_cases():
         "conv_ln_gelu": (cuda_conv.conv_ln_gelu_op, (y, w, cb, scale, bias, 1e-5, "exact"),
                          lambda: cuda_conv.conv_ln_gelu_plain(y, w, cb, scale, bias, 1e-5,
                                                               "exact")),
+        "pos_conv": (cuda_pos_conv.pos_conv_op, (xp, pimg, bp, 5, 2, 19),
+                     lambda: cuda_pos_conv.pos_conv_plain(xp, wp, bp, 2, 19)),
+        "pos_conv_dgrad": (cuda_pos_conv.pos_conv_dgrad_op, (xp, gimg, 5, 2),
+                           lambda: cuda_pos_conv.pos_conv_plain(
+                               xp, cuda_pos_conv.grad_weight(wp), None, 2, 19)),
     }
 
 
@@ -251,6 +266,24 @@ def test_serve_api_from_the_artifact(art, wav):
         server.shutdown()
         server.server_close()
         service.stop()
+
+
+def test_loader_registers_every_kernel_op():
+    """In a process that imports no model code, the loader's registration
+    resolves every kernel op a graph may call: each `LAUNCHES` key is an
+    `addv::` op (a cuda graph of the bf16 embedder calls `addv::pos_conv`,
+    which the CPU graphs here never hold)."""
+    code = ("import torch\n"
+            "from xai_audio_deepfakes_tpu_torch.serve.export import register_kernel_ops\n"
+            "from xai_audio_deepfakes_tpu_torch.ops._cuda import LAUNCHES\n"
+            "register_kernel_ops()\n"
+            "for name in LAUNCHES:\n"
+            "    getattr(torch.ops.addv, name).default\n"
+            "print(sorted(LAUNCHES))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "pos_conv_dgrad" in r.stdout
 
 
 def test_graph_holds_the_kernel_ops(art, pipe):

@@ -17,6 +17,14 @@ from xai_audio_deepfakes_tpu_torch.ops import stft
 from xai_audio_deepfakes_tpu_torch.ops.attention import attention, attention_plain, head_pad_dim
 from xai_audio_deepfakes_tpu_torch.ops.cuda_conv import conv_ln_gelu, conv_ln_gelu_plain
 from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import ln_gelu, ln_gelu_, ln_gelu_plain
+from xai_audio_deepfakes_tpu_torch.ops.cuda_pos_conv import (
+    grad_weight,
+    pos_conv,
+    pos_conv_dgrad_op,
+    pos_conv_grad_image,
+    pos_conv_image,
+    pos_conv_plain,
+)
 from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import istft as t_istft
 from xai_audio_deepfakes_tpu_torch.ops.cuda_stft import stft as t_stft
 
@@ -351,3 +359,64 @@ def test_kernel_backward_matches_autograd_through_plain(rng, cuda, name):
         plain = lambda *a: conv_ln_gelu_plain(*a, 1e-5, "exact")  # noqa: E731
     for got, want in zip(_grads(fn, tensors), _grads(plain, tensors)):
         torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+# kernel F: XLS-R's grouped positional conv, [B, T, 1920], k 128, 16 groups
+POS_H, POS_K, POS_G = 1920, 128, 16
+
+
+def _pos_conv_inputs(rng, device, b, t, h=POS_H, k=POS_K, groups=POS_G):
+    cg = h // groups
+    x = torch.from_numpy(rng.standard_normal((b, t, h)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((h, cg, k)).astype(np.float32) * (cg * k) ** -0.5)
+    bias = torch.from_numpy(rng.standard_normal(h).astype(np.float32) * 0.1)
+    return (x.to(device, torch.bfloat16), w.to(device, torch.bfloat16),
+            bias.to(device, torch.bfloat16))
+
+
+def _one_step_close(got, want):
+    """Within two bf16 steps (the tensor cores' f32 sums round now and then
+    to the neighbouring bf16 value, and the bias add rounds once more), and
+    at most 0.1% of the elements more than one step off."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1.6e-2)
+    assert float(((got - want).abs() > 1e-2 + 2 ** -8 * want.abs()).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t", [(16, 249), (192, 249), (2, 1), (2, 100), (3, 257), (2, 600)])
+def test_pos_conv_kernel_matches_plain(rng, cuda, b, t):
+    """Kernel F's forward (pad 64, the trailing frame never computed) and
+    its input gradient (the flipped image, pad 63) against the plain
+    versions, at a training step's embed, an offline explain's and ragged
+    lengths."""
+    x, w, bias = _pos_conv_inputs(rng, cuda, b, t)
+    _one_step_close(pos_conv(x, w, bias, POS_K // 2), pos_conv_plain(x, w, bias, POS_K // 2, t))
+    grad = pos_conv_dgrad_op(x, pos_conv_grad_image(w), POS_K, POS_K - 1 - POS_K // 2)
+    _one_step_close(grad, pos_conv_plain(x, grad_weight(w), None, POS_K - 1 - POS_K // 2, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,groups,k,t", [(32, 2, 16, 40), (48, 2, 5, 300), (240, 2, 128, 70)])
+def test_pos_conv_kernel_other_widths(rng, cuda, h, groups, k, t):
+    """Narrower groups (16 and 24 channels: zero columns in the image, an
+    odd k) and XLS-R's width at two groups, forward and input gradient."""
+    x, w, bias = _pos_conv_inputs(rng, cuda, 2, t, h, k, groups)
+    _one_step_close(pos_conv(x, w, bias, k // 2), pos_conv_plain(x, w, bias, k // 2, t))
+    gimg = pos_conv_grad_image(w)
+    _one_step_close(pos_conv_dgrad_op(x, gimg, k, k - 1 - k // 2),
+                    pos_conv_plain(x, grad_weight(w), None, k - 1 - k // 2, t))
+
+
+@pytest.mark.gpu
+def test_pos_conv_gradient_is_deterministic_and_flows(rng, cuda):
+    """Two gradient launches are bit for bit equal; through the autograd
+    function the input gradient is the kernel's on the gradient image."""
+    x, w, bias = _pos_conv_inputs(rng, cuda, 16, 249)
+    gimg = pos_conv_grad_image(w)
+    first = pos_conv_dgrad_op(x, gimg, POS_K, POS_K // 2 - 1)
+    assert torch.equal(first, pos_conv_dgrad_op(x, gimg, POS_K, POS_K // 2 - 1))
+    xg = x.clone().requires_grad_()
+    y = pos_conv(xg, w, bias, POS_K // 2, pos_conv_image(w), gimg)
+    y.backward(x)
+    assert torch.equal(xg.grad, first)

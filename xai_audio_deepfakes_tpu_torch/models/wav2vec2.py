@@ -94,6 +94,12 @@ from xai_audio_deepfakes_tpu_torch.ops.cuda_ln_gelu import (
     ln_gelu,
     supports_ln_gelu,
 )
+from xai_audio_deepfakes_tpu_torch.ops.cuda_pos_conv import (
+    pos_conv,
+    pos_conv_grad_image,
+    pos_conv_image,
+    supports_pos_conv,
+)
 from xai_audio_deepfakes_tpu_torch.ops.quant import (
     derived,
     fold_static_scales,
@@ -301,7 +307,10 @@ class PositionalConvEmbedding(nn.Module):
     With `quant` the conv is `_Int8GroupedConv`: one activation scale per
     sample (over time and channels, so a clip's output does not depend on
     its batch neighbours), one weight scale per output channel, int32 sums,
-    the f32 bias added and the result cast to x's dtype."""
+    the f32 bias added and the result cast to x's dtype. Otherwise bf16 on
+    a card takes kernel F (`takes_kernel`) on x's own [B, T, H] layout, the
+    dropped frame never computed, with the weight's two images kept per
+    weight (`derived`); everything else takes `_conv1d`."""
 
     def __init__(self, cfg: EmbedderConfig, generator, device):
         super().__init__()
@@ -320,11 +329,28 @@ class PositionalConvEmbedding(nn.Module):
         acc = int8_conv1d_q(xq.transpose(1, 2), wq, 1, conv.padding[0], conv.groups)
         return (rescale(acc, sx, sw.reshape(-1)) + conv.bias).to(x.dtype)
 
+    def takes_kernel(self, device_type: str, dtype: torch.dtype) -> bool:
+        """Kernel F runs the float path's conv where it applies: bf16
+        activations and weights on a card, stride 1, a group width and
+        tap count it is built for."""
+        conv = self.conv
+        h, cg, k = conv.weight.shape
+        return (not self.quant and device_type == "cuda" and dtype == torch.bfloat16
+                and conv.weight.dtype == torch.bfloat16 and conv.stride == (1,)
+                and conv.dilation == (1,) and supports_pos_conv(k, cg))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H] -> [B, T, H]
         if self.quant:
             y = self._int8(x)
             return _gelu(y[:, :-1] if self.k % 2 == 0 else y, self.cfg.gelu)
-        y = _conv1d(x.transpose(1, 2), self.conv)
+        conv = self.conv
+        if self.takes_kernel(x.device.type, x.dtype):
+            image = derived(self, "pos_conv", pos_conv_image, conv.weight)
+            grad_image = (derived(self, "pos_conv_dgrad", pos_conv_grad_image, conv.weight)
+                          if torch.is_grad_enabled() and x.requires_grad else None)
+            y = pos_conv(x, conv.weight, conv.bias, conv.padding[0], image, grad_image)
+            return _gelu(y, self.cfg.gelu)
+        y = _conv1d(x.transpose(1, 2), conv)
         if self.k % 2 == 0:
             y = y[..., :-1]
         return _gelu(y, self.cfg.gelu).transpose(1, 2)

@@ -11,9 +11,10 @@ imports, and only the kernel launches fail.
 
 Each kernel is a registered op in the `NAMESPACE` library (`addv::attention`,
 `addv::stft`, `addv::istft`, `addv::ln_gelu`, `addv::ln_gelu_`,
-`addv::conv_ln_gelu`), defined beside its wrapper: the op's CUDA
-implementation is the ctypes launch, its CPU implementation the plain
-version, and its fake implementation gives the output's shape, so that
+`addv::conv_ln_gelu`, `addv::pos_conv`, `addv::pos_conv_dgrad`), defined
+beside its wrapper: the op's CUDA implementation is the ctypes launch, its
+CPU implementation the plain version, and its fake implementation gives the
+output's shape, so that
 `torch.export` keeps each kernel as a node of its own. `LAUNCHES` counts, per
 kernel, the launches of the op's CUDA implementation: it adds one where it
 launches its kernel and nowhere else, so a run, or a loaded exported graph,
@@ -34,12 +35,14 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("attention.cu", "stft.cu", "istft.cu", "ln_gelu.cu", "conv_ln_gelu.cu", "errors.cu")
+SOURCES = ("attention.cu", "stft.cu", "istft.cu", "ln_gelu.cu", "conv_ln_gelu.cu", "pos_conv.cu",
+           "errors.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 NAMESPACE = "addv"
 
-LAUNCHES = {"attention": 0, "stft": 0, "istft": 0, "ln_gelu": 0, "conv_ln_gelu": 0}
+LAUNCHES = {"attention": 0, "stft": 0, "istft": 0, "ln_gelu": 0, "conv_ln_gelu": 0,
+            "pos_conv": 0, "pos_conv_dgrad": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +64,8 @@ _SIGNATURES = {
     "addv_conv_ln_gelu": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
                           ctypes.c_float, _INT, _INT, _VOID],
     "addv_conv_ln_gelu_max_c": [],
+    "addv_pos_conv": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                      _VOID],
 }
 
 _lib: ctypes.CDLL | None = None

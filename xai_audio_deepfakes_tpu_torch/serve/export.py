@@ -308,18 +308,23 @@ class ExportedExplain:
         return ExportedExplain(self._program, params, self.meta, self.device.type)
 
 
-def load_exported(artifact_dir: str, device: str | torch.device | None = None) -> ExportedExplain:
-    """Load an artifact's graph for `device` (default: the device it was
-    exported on). A device it holds no graph for raises, and so does a CUDA
-    graph without CUDA."""
-    # the kernels' registered ops, which the graph calls (no model code)
+def register_kernel_ops() -> None:
+    """Import the kernels' registered ops, which a graph calls (no model
+    code)."""
     from xai_audio_deepfakes_tpu_torch.ops import (  # noqa: F401
         attention,
         cuda_conv,
         cuda_ln_gelu,
+        cuda_pos_conv,
         cuda_stft,
     )
 
+
+def load_exported(artifact_dir: str, device: str | torch.device | None = None) -> ExportedExplain:
+    """Load an artifact's graph for `device` (default: the device it was
+    exported on). A device it holds no graph for raises, and so does a CUDA
+    graph without CUDA."""
+    register_kernel_ops()
     with open(os.path.join(artifact_dir, _META_FILE)) as f:
         meta = json.load(f)
     default = meta["device"]
